@@ -101,8 +101,45 @@ def test_cli_truncation_exits_4(case):
     assert os.path.exists(out)                   # labels are still written
 
 
+def test_cli_calibrate_from_matches_reference(case, capsys):
+    """``--calibrate-from``: the annotation-derived fg fraction, NMS radius
+    and upper normalization percentile, then the volume-matched fg
+    threshold, as the JAX package's CLI derives them."""
+    import dataclasses
+
+    from tpuseg.ops.calibrate import (adaptive_upper_pct, expected_fg_fraction,
+                                      nms_radius_from_half_sizes)
+
+    sv = synthesize_volume(shape=(16, 32, 64), num_instances=6,
+                           radius_range=(3.0, 5.0), seed=3)
+    ann = str(case["tmp"] / "ann.npz")
+    np.savez(ann, centers=sv.centers, half_sizes=sv.half_sizes)
+    out = str(case["tmp"] / "calibrated.npy")
+    status = cli_infer.main(["--device", "cpu", "--checkpoint", case["ckpt"],
+                             "--input", case["vol"], "--output", out,
+                             "--config", case["cfg_path"],
+                             "--calibrate-from", ann])
+    assert status == 0 and "calibrated from" in capsys.readouterr().out
+    cfg = case["cfg"]
+    frac = expected_fg_fraction(sv.half_sizes, sv.image.size)
+    cfg = dataclasses.replace(
+        cfg, postproc=dataclasses.replace(
+            cfg.postproc, fg_target_fraction=frac,
+            nms_radius=nms_radius_from_half_sizes(sv.half_sizes)),
+        data=dataclasses.replace(cfg.data, normalize_pcts=(
+            cfg.data.normalize_pcts[0],
+            adaptive_upper_pct(frac, cfg.data.normalize_pcts[1]))))
+    want = np.asarray(ref_make_infer_fn(ref_build_model(case["mcfg"]), cfg)(
+        jax.tree.map(jnp.asarray, case["variables"]),
+        jnp.asarray(case["image"])))
+    got = np.load(out)
+    assert want.max() >= 2
+    assert abs(int(got.max()) - int(want.max())) <= 2
+    assert (got == want).mean() >= 0.99
+
+
 @pytest.mark.parametrize("flag", [["--stream", "8"], ["--shard", "z2"],
-                                  ["--calibrate-from", "a.npz"], ["--validate"]])
+                                  ["--resume-dir", "d"], ["--validate"]])
 def test_cli_unported_flags_error(case, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli_infer.main(["--checkpoint", case["ckpt"], "--input", case["vol"],
@@ -123,13 +160,15 @@ NO_JAX = """
 import sys
 for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint"):
     sys.modules[name] = None            # any import of them now fails
-import os, tempfile
+import json, os, tempfile
 import numpy as np, torch
 import chip_smoke
 import tpuseg_torch
 from tpuseg_torch import ckpt, core, data, eval, infer, models, ops
-from tpuseg_torch.cli import common, infer as cli_infer
+from tpuseg_torch.cli import common, infer as cli_infer, train as cli_train
 from tpuseg_torch.core import Config, InferConfig
+from tpuseg_torch import losses, train
+from tpuseg_torch.models import fused_train
 
 sv = data.synthesize_volume(shape=(12, 24, 40), num_instances=4,
                             radius_range=(3.0, 4.0), seed=1)
@@ -152,6 +191,22 @@ with tempfile.TemporaryDirectory() as tmp:
         "--output", os.path.join(tmp, "o.npy"),
         "--config", os.path.join(tmp, "c.json")])
     assert status == 0 and np.load(os.path.join(tmp, "o.npy")).shape == (12, 24, 40)
+    # training through its entry point, fused apply, then inference from the
+    # trainer's checkpoint directory
+    ck = os.path.join(tmp, "ck")
+    cli_train.main(["--device", "cpu", "--synthetic", "1",
+                    "--set", "model.features=[32,64]",
+                    "--set", "data.patch_size=[8,16,64]",
+                    "--set", "data.batch_size=2", "--set", "train.total_steps=2",
+                    "--set", 'train.apply_impl="fused"',
+                    "--set", "train.ckpt_dir=" + json.dumps(ck)])
+    status = cli_infer.main([
+        "--device", "cpu", "--checkpoint", ck,
+        "--input", os.path.join(tmp, "v.npy"),
+        "--output", os.path.join(tmp, "o2.npy"),
+        "--set", "model.features=[32,64]", "--set", "infer.tile=[12,24,40]",
+        "--set", "infer.halo=0"])
+    assert status == 0 and np.load(os.path.join(tmp, "o2.npy")).shape == (12, 24, 40)
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")]
 assert not loaded, loaded

@@ -176,3 +176,31 @@ def test_volume_io_roundtrip(tmp_path, ext):
     np.testing.assert_array_equal(load_volume(path), vol)
     with pytest.raises(NotImplementedError):
         load_volume(str(tmp_path / "v.tiff"))
+
+
+@pytest.mark.parametrize("frac,stride", [(0.05, 1), (0.3, 4), (0.0, 1)])
+def test_threshold_for_fraction_matches(frac, stride):
+    """The calibrated fg threshold (``ops/calibrate.py``): the same bin
+    from the same exact counts and float32 fractions."""
+    from tpuseg.ops.calibrate import threshold_for_fraction as ref_thr
+    from tpuseg_torch.ops.calibrate import threshold_for_fraction
+
+    fg, _ = _maps(seed=4)
+    got = threshold_for_fraction(_t(fg), frac, sample_stride=stride)
+    want = ref_thr(jnp.asarray(fg), frac, sample_stride=stride)
+    assert float(got) == float(want)
+
+
+def test_calibration_helpers_match():
+    from tpuseg.ops import calibrate as ref
+    from tpuseg_torch.ops import calibrate
+
+    h = np.random.default_rng(0).uniform(1, 6, (20, 3)).astype(np.float32)
+    h[:, 0] *= 0.4
+    valid = np.arange(20) % 3 != 0
+    assert calibrate.expected_fg_fraction(h, 10 ** 6, valid) == \
+        ref.expected_fg_fraction(h, 10 ** 6, valid)
+    assert calibrate.nms_radius_from_half_sizes(h) == \
+        ref.nms_radius_from_half_sizes(h)
+    for f in (1e-4, 0.01, 0.2):
+        assert calibrate.adaptive_upper_pct(f) == ref.adaptive_upper_pct(f)

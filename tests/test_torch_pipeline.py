@@ -114,7 +114,7 @@ def test_unet_pipeline_instance_agreement(volume):
 
 
 @pytest.mark.parametrize("key,value", [("infer.apply_impl", "fused"),
-                                       ("postproc.fg_target_fraction", 0.1),
+                                       ("postproc.nms_impl", "pallas"),
                                        ("postproc.merge_saddle_ratio", 0.8)])
 def test_unported_config_raises(key, value):
     cfg = Config().override(**{key: value})

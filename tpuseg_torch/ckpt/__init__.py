@@ -1,3 +1,6 @@
-from tpuseg_torch.ckpt.convert import load_pth, port_state_from_jax
+from tpuseg_torch.ckpt.convert import (jax_variables_from_port, load_pth,
+                                       port_state_from_jax)
+from tpuseg_torch.ckpt.manager import CheckpointManager
 
-__all__ = ["load_pth", "port_state_from_jax"]
+__all__ = ["CheckpointManager", "jax_variables_from_port", "load_pth",
+           "port_state_from_jax"]

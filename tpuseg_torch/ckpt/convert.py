@@ -9,8 +9,8 @@ without ``num_batches_tracked``:
   params/<m>/scale | bias        -> <m>.weight | <m>.bias       copy
   batch_stats/<m>/mean | var     -> <m>.running_mean | _var     copy
 
-Eval BatchNorm folds the statistics into its per-channel affine when it runs
-(``models/blocks.EvalBatchNorm``).
+Eval-mode BatchNorm folds the statistics into its per-channel affine when
+it runs (``models/blocks.eval_batch_norm``).
 """
 
 from __future__ import annotations
@@ -50,6 +50,32 @@ def port_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
                 raise ValueError(f"unexpected variable leaf {'/'.join(path)}")
             sd[".".join(mods) + "." + name] = torch.from_numpy(v)
     return sd
+
+
+def jax_variables_from_port(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`port_state_from_jax`: a port ``state_dict`` as
+    the JAX package's ``{"params", "batch_stats"}`` tree of numpy float32
+    arrays."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, v in state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        *mods, name = key.split(".")
+        v = v.detach().cpu().float().numpy()
+        if name == "weight" and v.ndim == 5:   # (O, I, kd, kh, kw) -> DHWIO
+            coll, leaf = "params", "kernel"
+            v = np.ascontiguousarray(np.transpose(v, (2, 3, 4, 1, 0)))
+        elif name in ("weight", "bias"):
+            coll, leaf = "params", "scale" if name == "weight" else "bias"
+        elif name in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", name[len("running_"):]
+        else:
+            raise ValueError(f"unexpected state key {key}")
+        node = out[coll]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = v
+    return out
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Shared CLI plumbing: config loading + dotted overrides (the same flags and
-JSON format as ``tpuseg/cli/common.py``)."""
+JSON format as ``tpuseg/cli/common.py``) and the checkpoint-in contract."""
 
 from __future__ import annotations
 
@@ -35,3 +35,16 @@ def load_config(args) -> Config:
                 kv[key] = val  # bare string
         cfg = cfg.override(**kv)
     return cfg
+
+
+def load_model_state(ckpt: str):
+    """Checkpoint-in contract: a mirror-named ``.pth`` (``tpuseg.cli.export``
+    or a trainer step's ``model.pth``), or a trainer checkpoint directory
+    (``train.ckpt_dir``: its latest step), as a port ``state_dict``."""
+    import os
+
+    from tpuseg_torch.ckpt import CheckpointManager, load_pth
+
+    if os.path.isdir(ckpt):
+        ckpt = CheckpointManager(ckpt).model_path()
+    return load_pth(ckpt)

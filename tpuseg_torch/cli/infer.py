@@ -10,17 +10,19 @@ import argparse
 import time
 
 # flags of tpuseg.cli.infer that the port does not take yet (ROADMAP.md)
-_UNPORTED = ("--calibrate-from", "--stream", "--resume-dir", "--stream-shard",
-             "--validate", "--shard")
+_UNPORTED = ("--stream", "--resume-dir", "--stream-shard", "--validate",
+             "--shard")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    from tpuseg_torch.cli.common import add_config_args, load_config
+    from tpuseg_torch.cli.common import (add_config_args, load_config,
+                                         load_model_state)
 
     add_config_args(p)
     p.add_argument("--checkpoint", required=True,
-                   help="mirror-named .pth state_dict (tpuseg.cli.export)")
+                   help="mirror-named .pth state_dict (tpuseg.cli.export), "
+                        "or a tpuseg_torch.cli.train checkpoint directory")
     p.add_argument("--input", required=True, help="volume file (npy/npz)")
     p.add_argument("--output", required=True,
                    help="instance-label volume out (npy/npz, int32)")
@@ -29,6 +31,12 @@ def main(argv=None) -> int:
     p.add_argument("--report-convergence", action="store_true",
                    help="report the watershed flood-truncation count; "
                         "nonzero exits with status 4")
+    p.add_argument("--calibrate-from", default="", metavar="ANNOTATIONS_NPZ",
+                   help="weak-annotation npz (centers + half_sizes): derives "
+                        "postproc.fg_target_fraction (box->mask inflation "
+                        "correction) and a per-axis postproc.nms_radius "
+                        "(anisotropic stacks need a smaller z footprint) from "
+                        "the instance-shape statistics")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     for flag in _UNPORTED:
@@ -42,7 +50,6 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from tpuseg_torch.ckpt import load_pth
     from tpuseg_torch.data.volume_io import load_volume, save_volume
     from tpuseg_torch.infer import make_infer_fn
     from tpuseg_torch.models import build_model
@@ -52,9 +59,31 @@ def main(argv=None) -> int:
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
 
     model = build_model(cfg.model)
-    model.load_state_dict(load_pth(args.checkpoint))
+    model.load_state_dict(load_model_state(args.checkpoint))
     model.to(device)
     volume = load_volume(args.input).astype(np.float32)
+
+    if args.calibrate_from:
+        import dataclasses
+
+        from tpuseg_torch.data.volume_io import load_annotations
+        from tpuseg_torch.ops.calibrate import (adaptive_upper_pct,
+                                                expected_fg_fraction,
+                                                nms_radius_from_half_sizes)
+
+        _, half_sizes = load_annotations(args.calibrate_from)
+        frac = expected_fg_fraction(half_sizes, volume.size)
+        nms_r = nms_radius_from_half_sizes(half_sizes)
+        upper = adaptive_upper_pct(frac, default_upper=cfg.data.normalize_pcts[1])
+        cfg = dataclasses.replace(
+            cfg,
+            postproc=dataclasses.replace(
+                cfg.postproc, fg_target_fraction=frac, nms_radius=nms_r),
+            data=dataclasses.replace(
+                cfg.data, normalize_pcts=(cfg.data.normalize_pcts[0], upper)))
+        print(f"calibrated from {args.calibrate_from}: "
+              f"fg_target_fraction={frac:.5f} nms_radius={nms_r} "
+              f"normalize_upper_pct={upper:.4f}")
 
     t0 = time.perf_counter()
     infer = make_infer_fn(model, cfg, normalize=not args.no_normalize,

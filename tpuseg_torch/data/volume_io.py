@@ -37,3 +37,13 @@ def save_volume(path: str, vol: np.ndarray, dataset: str = "volume") -> None:
         np.save(path, vol)
     else:
         np.savez_compressed(path, **{dataset: vol})
+
+
+def load_annotations(path: str):
+    """Weak annotations: npz with ``centers`` (K,3) and ``half_sizes`` (K,3)."""
+    with np.load(path) as z:
+        return z["centers"].astype(np.float32), z["half_sizes"].astype(np.float32)
+
+
+def save_annotations(path: str, centers: np.ndarray, half_sizes: np.ndarray) -> None:
+    np.savez_compressed(path, centers=centers, half_sizes=half_sizes)

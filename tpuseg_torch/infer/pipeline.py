@@ -23,6 +23,7 @@ from tpuseg_torch.core import Config, InferConfig
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.data.normalize import histogram_percentile_scalars
 from tpuseg_torch.infer.tiles import rf_radius_bound, tiled_forward
+from tpuseg_torch.ops.calibrate import threshold_for_fraction
 from tpuseg_torch.ops.filter import size_filter_and_compact
 from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
 
@@ -31,7 +32,8 @@ def _check_ported(cfg: Config) -> None:
     unported = [
         # the default apply is the plain module forward; "fused" (K4) waits
         ("infer.apply_impl", cfg.infer.apply_impl != InferConfig.apply_impl),
-        ("postproc.fg_target_fraction", cfg.postproc.fg_target_fraction > 0),
+        # the peak NMS kernel (K5) waits; the plain NMS is the default
+        ("postproc.nms_impl", cfg.postproc.nms_impl != "xla"),
         ("postproc.merge_saddle_ratio", cfg.postproc.merge_saddle_ratio > 0),
     ]
     for key, bad in unported:
@@ -43,8 +45,14 @@ def _check_ported(cfg: Config) -> None:
 def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
                  plain: bool):
     pp = cfg.postproc
+    fg_threshold = pp.fg_threshold
+    if pp.fg_target_fraction > 0:
+        # volume-matched threshold (ops/calibrate.py); one host read
+        fg_threshold = float(threshold_for_fraction(
+            fg_prob, pp.fg_target_fraction,
+            sample_stride=cfg.data.normalize_sample_stride))
     labels = watershed(fg_prob, peak_prob, peak_threshold=pp.peak_threshold,
-                       fg_threshold=pp.fg_threshold,
+                       fg_threshold=fg_threshold,
                        peak_radius=pp.nms_radius, flood_iters=pp.flood_iters,
                        method=pp.method, nms_impl=pp.nms_impl,
                        resolve_impl=pp.resolve_impl, label_space="index",
@@ -53,7 +61,7 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
     if want_diag:
         # measured on the raw watershed output, before filtering
         diag = {"flood_truncated": int(flood_truncation_count(
-            labels, fg_prob >= pp.fg_threshold))}
+            labels, fg_prob >= fg_threshold))}
     labels = size_filter_and_compact(labels, pp.min_size)
     return (labels, diag) if want_diag else labels
 

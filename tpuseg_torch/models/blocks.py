@@ -5,8 +5,13 @@ every op rounds where the JAX package's does:
 
 * ``Conv3d`` convolves in the compute dtype and adds its bias afterwards, in
   that dtype (``tpuseg/models/conv3d.Conv3D``);
-* ``EvalBatchNorm`` folds the running statistics to a per-channel affine in
-  float32 and applies it in the compute dtype (``blocks.py:62-67``);
+* ``BatchNorm`` in eval mode folds the running statistics to a per-channel
+  affine in float32 and applies it in the compute dtype (``EvalBatchNorm``,
+  ``blocks.py:62-67``); in train mode it normalizes with float32 batch
+  statistics reduced from the compute-dtype tensor, applies the folded
+  affine in float32 arithmetic and rounds once to the compute dtype, so the
+  backward's per-channel reductions accumulate in float32
+  (``TrainBatchNorm``, ``blocks.py:111-131``);
 * ``Up`` is nearest x2, a (0, 1) pad on each axis (XLA's SAME for an even
   kernel), then the k=2 conv (``ckpt/torch_mirror.py:68-71``).
 
@@ -32,35 +37,76 @@ class Conv3d(nn.Conv3d):
         return y
 
 
-class EvalBatchNorm(nn.Module):
-    """Inference BatchNorm: ``x * s + b`` in the input's dtype with
-    ``s = rsqrt(var + eps) * weight`` and ``b = bias - mean * s`` folded in
-    float32. State names are ``nn.BatchNorm3d``'s."""
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1, 1)
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+def eval_batch_norm(x, weight, bias, running_mean, running_var,
+                    eps: float = 1e-5):
+    """``EvalBatchNorm``: ``x * s + b`` in x's dtype with
+    ``s = rsqrt(var + eps) * weight`` and ``b = bias - mean * s`` folded in
+    float32."""
+    s = torch.rsqrt(running_var + eps) * weight
+    b = bias - running_mean * s
+    return x * _channel(s.to(x.dtype)) + _channel(b.to(x.dtype))
+
+
+def train_batch_norm(x, weight, bias, running_mean, running_var,
+                     momentum: float = 0.9, eps: float = 1e-5):
+    """``TrainBatchNorm``: normalize (N, C, D, H, W) ``x`` by its float32
+    batch statistics — the mean and the biased variance
+    ``max(E[x^2] - mean^2, 0)`` over (N, D, H, W) — and update the running
+    statistics in place by the EMA ``momentum * old + (1 - momentum) *
+    batch`` (flax's convention; ``nn.BatchNorm3d`` keeps an unbiased
+    variance under the opposite momentum). The folded affine is applied in
+    float32 and rounded once to x's dtype."""
+    dims = (0, 2, 3, 4)
+    xf = x.float()
+    mean = xf.mean(dims)
+    mean2 = torch.square(xf).mean(dims)
+    var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+    with torch.no_grad():
+        running_mean.copy_(momentum * running_mean
+                           + (1.0 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1.0 - momentum) * var)
+    a = weight.float() * torch.rsqrt(var + eps)
+    b = bias.float() - mean * a
+    return (xf * _channel(a) + _channel(b)).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm with ``nn.BatchNorm3d``'s state names: train mode runs
+    :func:`train_batch_norm`, eval mode :func:`eval_batch_norm`, on the same
+    parameters and running statistics."""
+
+    momentum = 0.9          # the JAX package's ConvBlock sets these two
+    eps = 1e-5
+
+    def __init__(self, features: int):
         super().__init__()
-        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        s = torch.rsqrt(self.running_var + self.eps) * self.weight
-        b = self.bias - self.running_mean * s
-        return (x * s.to(x.dtype).view(1, -1, 1, 1, 1)
-                + b.to(x.dtype).view(1, -1, 1, 1, 1))
+        if self.training:
+            return train_batch_norm(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.momentum, self.eps)
+        return eval_batch_norm(x, self.weight, self.bias, self.running_mean,
+                               self.running_var, self.eps)
 
 
 class ConvBlock(nn.Module):
-    """(Conv3x3x3 -> eval BN -> ReLU) twice."""
+    """(Conv3x3x3 -> BN -> ReLU) twice."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv0 = Conv3d(cin, cout, 3, padding=1, bias=False)
-        self.norm0 = EvalBatchNorm(cout)
+        self.norm0 = BatchNorm(cout)
         self.conv1 = Conv3d(cout, cout, 3, padding=1, bias=False)
-        self.norm1 = EvalBatchNorm(cout)
+        self.norm1 = BatchNorm(cout)
 
     def forward(self, x):
         x = F.relu(self.norm0(self.conv0(x)))
@@ -86,8 +132,11 @@ class Up(nn.Module):
         self.up_conv = Conv3d(cin, cout, 2)
         self.block = ConvBlock(2 * cout, cout)
 
-    def forward(self, x, skip):
+    def up(self, x):
+        """The k=2 conv of the nearest-x2 upsampled ``x``."""
         x = F.interpolate(x, scale_factor=2, mode="nearest")
-        x = F.pad(x, (0, 1, 0, 1, 0, 1))
-        x = self.up_conv(x)
+        return self.up_conv(F.pad(x, (0, 1, 0, 1, 0, 1)))
+
+    def forward(self, x, skip):
+        x = self.up(x)
         return self.block(torch.cat([x, skip.to(x.dtype)], dim=1))

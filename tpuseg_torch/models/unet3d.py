@@ -3,7 +3,11 @@
 
 Takes (N, 1, D, H, W) or (N, D, H, W) volumes and returns float32 logits
 ``{"fg_logits": (N, D, H, W), "peak_logits": (N, D, H, W)}``, computed in
-``ModelConfig.compute_dtype``. Eval-mode only: training is not ported yet.
+``ModelConfig.compute_dtype``. ``model.train()`` selects train-mode
+BatchNorm (batch statistics, running statistics updated in place) and
+``model.eval()`` eval-mode BatchNorm, on the same parameters and buffers
+(``models/blocks.BatchNorm``); ``models/fused_train.py`` runs the same
+modules with the full-resolution convs on the K6 kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from torch import nn
 
 from tpuseg_torch.core import ModelConfig
 from tpuseg_torch.core.dtypes import resolve
-from tpuseg_torch.models.blocks import Conv3d, ConvBlock, Down, EvalBatchNorm, Up
+from tpuseg_torch.models.blocks import BatchNorm, Conv3d, ConvBlock, Down, Up
 
 
 class UNet3D(nn.Module):
@@ -72,7 +76,7 @@ def init_weights(model: UNet3D, generator: torch.Generator) -> UNet3D:
                            / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, EvalBatchNorm):
+        elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
             n = m.running_mean.shape

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``tpuseg_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
 interface, loaded with ``ctypes`` — seconds to build, against minutes for a
 source that includes PyTorch's headers. The build runs at first use, into
 ``tpuseg_torch/_build/<hash>/`` where the hash covers the sources and the
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,7 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tpuseg_chase_pass": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuseg_flood_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpuseg_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -68,14 +70,29 @@ def load() -> ctypes.CDLL:
     lib_path = out / "libtpuseg_kernels.so"
     if not lib_path.exists():
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"libtpuseg_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (out / "build.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
+        nvcc = _nvcc()
+        tag = os.getpid()
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [out / f"{s.stem}.{tag}.o" for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+                                   str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        tmp = out / f"libtpuseg_kernels.{tag}.so"
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                   str(tmp),
+                                   *(str(o) for o in objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        log = "".join(logs)
+        (out / "build.log").write_text(log)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
