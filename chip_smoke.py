@@ -5,9 +5,9 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card: name, count, power limit (CUDA missing -> error);
-2. build the hand-written kernels (K1 seed, K2 chase, K3 flood, K6 training
-   conv) from ``tpuseg_torch/csrc`` and print nvcc's per-kernel register
-   report;
+2. build the hand-written kernels (K1 seed, K2 chase, K3 flood, K4 fused
+   eval ConvBlock, K5 peak NMS, K6 training conv) from ``tpuseg_torch/csrc``
+   and print nvcc's per-kernel register report;
 3. each kernel against its plain PyTorch twin on the card, elementwise, at
    the main-path shape 96x512x512 (analytic maps of a 600-instance
    synthetic stack) and at a ragged shape; kernel and twin times (CUDA
@@ -34,16 +34,40 @@ Phases, in order; any failure raises and exits non-zero:
    every parameter gradient (f32 and bf16 bounds in the phase);
 9. bench.py's 200-step trained-weights recipe through
    ``tpuseg_torch.train.train`` (fused), then ``cli.infer`` with that
-   checkpoint on the 96x512x512 stack, default and calibrated
-   (``--calibrate-from``): the loss must halve and the calibrated
-   F1@IoU0.5 reach 0.5.
+   checkpoint on the 96x512x512 stack, default, calibrated
+   (``--calibrate-from``) and calibrated under
+   ``infer.apply_impl="fused"``: the loss must halve and both calibrated
+   F1@IoU0.5 reach 0.5;
+10. K4 against its twin at the fused sweep's three block shapes
+    (1, ci, 64, 160, 160), ci in {1, 64, 32}, and at (2, ci, 5, 27, 45), in
+    f32 (TF32 off) and bf16, with non-zero seeded affines; times (bf16) of
+    the kernel, the twin and the library call (the module ``ConvBlock`` in
+    eval mode: cuDNN convs + BatchNorm + ReLU);
+11. K5 against its twin, elementwise, at 96x512x512 (radius 2) and at
+    45x203x301 (radius (1, 2, 2), once more on a quantized map full of
+    plateaus, and with radius 0 on z); times of the kernel, the twin and a
+    ``F.max_pool3d`` NMS without the index tie-break (timing only);
+12. the fused main path: ``cli.infer`` with ``infer.apply_impl="fused"`` on
+    the stack and checkpoint of phase 4: K4 launched 3 x 48 = 144 times,
+    K1-K3 above 0; warm stage times beside the plain sweep's, and each
+    call's device time by kernel (``torch.profiler``); the fused logits
+    against the same apply through K4's twin; then
+    ``postproc.nms_impl="pallas"`` (K5 launched, labels elementwise equal
+    to phase 4's) and ``postproc.method="flood"`` against its plain run,
+    and the warm post-processing time of each composition.
 
-The second-to-last lines are the kernels' JSON record and nvidia-smi's
-``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
+``--phases 10,11`` runs phases 1-2 and only the named ones (to try a kernel
+alone; no final record). Without arguments every phase runs; the
+second-to-last lines are then the kernels' JSON record (with each kernel's
+bound: the larger of its bytes over the card's memory rate and its
+operations over the card's peak rate, from this run's shapes) and
+nvidia-smi's ``name, power.limit``; the last line is
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -58,6 +82,10 @@ MAIN_SHAPE = (96, 512, 512)
 RAGGED_SHAPE = (45, 203, 301)
 TRAIN_SHAPE = (8, 64, 64, 64)           # batch 8 of 64^3 patches
 RAGGED_CONV_SHAPE = (3, 13, 27, 45)
+BLOCK_SHAPE = (1, 64, 160, 160)         # one tile block of the default sweep
+RAGGED_BLOCK_SHAPE = (2, 5, 27, 45)
+BLOCK_CI = (1, 64, 32)                  # enc0, up0.block, head_trunk
+N_TILES = 48                            # blocks per 96x512x512 stack
 NUM_INSTANCES = 600
 SEED = 0
 
@@ -70,8 +98,19 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
                    "tpuseg/ops/pallas_resolve.py:291"),
     "conv3x3_raw": ("tpuseg_torch/csrc/convtrain.cu",
                     "tpuseg/ops/pallas_convtrain.py:231"),
+    "fused_convblock": ("tpuseg_torch/csrc/convblock.cu",
+                        "tpuseg/ops/pallas_convblock.py:382"),
+    "fused_peak_nms": ("tpuseg_torch/csrc/nms.cu",
+                       "tpuseg/ops/pallas_nms.py:133"),
 }
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory rate, bf16 tensor-core rate, and the float32 rate outside the
+# tensor cores, which also stands in for compare/select work.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 INFER_KERNELS = ("seed_chase_pass", "chase_pass", "flood_pass")
+TRAIN_KERNELS = INFER_KERNELS + ("conv3x3_raw",)   # validation infers
 TRAIN_STEPS, RESUME_STEPS = 20, 24       # the train main path, then a resume
 QUALITY_STEPS = 200                      # bench.py's trained-weights recipe
 
@@ -120,6 +159,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / ops_per_s
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def max_abs_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
@@ -147,9 +195,19 @@ def phase_build():
 
 
 def compare_kernels(fg, pk, timed: bool):
-    """K1-K3 against their twins on one pair of maps; returns per kernel
-    (max_abs_err, ms, plain_ms)."""
-    from tpuseg_torch.ops.resolve import (chase_resolve, chase_resolve_plain,
+    """K1-K3 against their twins on one pair of maps; returns per kernel a
+    record with max_abs_err and, if timed, ms, plain_ms and the bound.
+
+    Bounds, per voxel: K1 reads two float32 maps and writes two int32
+    volumes (16 B) for about 60 compare/select operations (two separable
+    5-wide pools, the 6-neighbour argmax, 8 chase steps). A K2 pass must
+    read values, dirs and the mask and write values (13 B); a K3 pass must
+    read the potential and the labels and write the labels (12 B), each
+    for about 8 x 10 operations; the resolve loops are data dependent, so
+    the bound counts the passes this input ran. No single library call
+    computes any of the three."""
+    from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve,
+                                          chase_resolve_plain, flood_pass,
                                           flood_resolve, flood_resolve_plain)
     from tpuseg_torch.ops.seed import seed_chase_pass, seed_chase_pass_plain
 
@@ -157,19 +215,24 @@ def compare_kernels(fg, pk, timed: bool):
     fgm = fg >= thr
     runs = {
         "seed_chase_pass": (
+            seed_chase_pass, 16, 60,
             lambda: seed_chase_pass(pk, fg, thr, thr, radius),
             lambda: seed_chase_pass_plain(pk, fg, thr, thr, radius)),
     }
     dirs, v = seed_chase_pass_plain(pk, fg, thr, thr, radius)
-    runs["chase_pass"] = (lambda: chase_resolve(v, dirs, fgm),
+    runs["chase_pass"] = (chase_pass, 13, 80,
+                          lambda: chase_resolve(v, dirs, fgm),
                           lambda: chase_resolve_plain(v, dirs, fgm))
     v_res = chase_resolve_plain(v, dirs, fgm).clamp(min=0)
     runs["flood_pass"] = (
+        flood_pass, 12, 80,
         lambda: flood_resolve(v_res, fgm, fg, flood_iters),
         lambda: flood_resolve_plain(v_res, fgm, fg, flood_iters))
     out = {}
-    for name, (kern, plain) in runs.items():
+    for name, (wrapper, vox_bytes, vox_ops, kern, plain) in runs.items():
+        before = wrapper.launches
         got, want = kern(), plain()
+        passes = wrapper.launches - before
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
@@ -177,9 +240,13 @@ def compare_kernels(fg, pk, timed: bool):
         if err != 0:
             raise AssertionError(f"{name}: kernel != twin at {tuple(fg.shape)} "
                                  f"(max abs err {err})")
-        ms = cuda_ms(kern, 5) if timed else None
-        plain_ms = cuda_ms(plain, 2) if timed else None
-        out[name] = (err, ms, plain_ms)
+        out[name] = {"max_abs_err": err}
+        if timed:
+            out[name].update(
+                ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 2),
+                library_ms=None, passes=passes,
+                **bound(passes * vox_bytes * fg.numel(),
+                        passes * vox_ops * fg.numel(), F32_FLOPS))
     return out
 
 
@@ -191,10 +258,13 @@ def phase_kernels(image: np.ndarray):
     ragged = synthesize_volume(shape=RAGGED_SHAPE, num_instances=40,
                                seed=SEED + 1).image
     rag = compare_kernels(*analytic_maps(ragged, "cuda"), timed=False)
-    for name, (err, ms, plain_ms) in main.items():
+    for name, r in main.items():
+        r["max_abs_err"] = max(r["max_abs_err"], rag[name]["max_abs_err"])
         print(f"[3] {name}: == twin at {MAIN_SHAPE} and {RAGGED_SHAPE}; "
-              f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms at {MAIN_SHAPE}")
-    return {k: (max(main[k][0], rag[k][0]),) + main[k][1:] for k in main}
+              f"kernel {r['ms']:.3f} ms ({r['passes']} launches), twin "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']} at {MAIN_SHAPE}")
+    return main
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -264,7 +334,15 @@ def phase_conv():
               f"{ms:.3f} ms, twin {plain_ms:.3f} ms")
     print(f"[6] conv3x3 == twin (fwd and dx, f32 and bf16) at {TRAIN_SHAPE} "
           f"and {RAGGED_CONV_SHAPE}, ci in (1, 32, 64); max abs err {worst:.3g}")
-    return worst, times
+    # the record: fwd ci=32 in bf16. 2*27*32*32 FLOP per voxel on the tensor
+    # cores' rate; x and y in bf16 plus the weights. The twin is the library
+    # call (F.conv3d).
+    ms, plain_ms = times[("fwd", 32)]
+    vox = int(np.prod(TRAIN_SHAPE))
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": plain_ms,
+            **bound(2 * 32 * vox * 2 + 27 * 32 * 32 * 2,
+                    2 * 27 * 32 * 32 * vox, BF16_FLOPS)}
 
 
 def _read_jsonl(path):
@@ -325,7 +403,7 @@ def phase_main_path(image: np.ndarray, tmp: str):
     print(f"[4] main path: {n_inst} instances; wall {wall:.3f} s incl. "
           f"first-call setup ({vox / wall / 1e6:.2f} Mvox/s); peak device "
           f"memory {peak_gb:.2f} GB")
-    return launches, ckpt, cfg
+    return launches, ckpt, cfg, labels
 
 
 def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
@@ -404,7 +482,7 @@ def phase_train_main_path(tmp: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"train main path never launched {missing}")
     recs = _read_jsonl(log)
@@ -508,7 +586,8 @@ def phase_trained_quality(sv, tmp: str):
     96x512x512 600-instance stack, under default post-processing and
     calibrated from the stack's weak annotations (``--calibrate-from``: the
     volume-matched fg threshold that undoes box supervision's ~2x mask
-    inflation, as bench.py's c3 does). The calibrated F1@IoU0.5 must
+    inflation, as bench.py's c3 does), the latter once more with
+    ``infer.apply_impl="fused"`` (K4). Both calibrated F1@IoU0.5 must
     reach 0.5; the default one is printed."""
     from tpuseg_torch.cli import infer as cli_infer
     from tpuseg_torch.core import Config
@@ -545,9 +624,13 @@ def phase_trained_quality(sv, tmp: str):
     np.save(vol_path, sv.image)
     save_annotations(ann_path, sv.centers, sv.half_sizes)
     f1 = {}
-    for tag, extra in (("default", []), ("calibrated",
-                                         ["--calibrate-from", ann_path])):
-        out_path = os.path.join(tmp, f"labels_{tag}.npy")
+    for tag, extra in (
+            ("default", []),
+            ("calibrated", ["--calibrate-from", ann_path]),
+            ("calibrated, fused apply",
+             ["--calibrate-from", ann_path, "--set",
+              'infer.apply_impl="fused"'])):
+        out_path = os.path.join(tmp, f"labels_{len(f1)}.npy")
         t0 = time.perf_counter()
         status = cli_infer.main(["--checkpoint", ckpt_dir, "--input",
                                  vol_path, "--output", out_path, *extra])
@@ -563,9 +646,349 @@ def phase_trained_quality(sv, tmp: str):
               f"(wall {wall:.1f} s incl. set-up)")
         if status != 0:
             raise AssertionError(f"cli.infer returned {status}")
-    if f1["calibrated"] < 0.5:
-        raise AssertionError(f"trained quality: calibrated F1@IoU0.5 "
-                             f"{f1['calibrated']:.4f} < 0.5")
+    for tag in ("calibrated", "calibrated, fused apply"):
+        if f1[tag] < 0.5:
+            raise AssertionError(f"trained quality: {tag}: F1@IoU0.5 "
+                                 f"{f1[tag]:.4f} < 0.5")
+
+
+def check_block(name, got, want, dtype) -> float:
+    """Max abs error of the K4 kernel against its twin; raises beyond the
+    bounds.
+
+    float32 (TF32 off in the twin): every element within 1e-4 of the
+    output's max magnitude (summation order only; T is not rounded).
+    bfloat16: kernel and twin sum conv1 in different orders, so now and then
+    a T element rounds to the neighbouring bf16 value, and conv2 carries
+    that ulp(T) * |w2| to every output in reach — more than 2 ulps of an
+    output near zero. So: every element within 2 bf16 ulps of the output's
+    max magnitude, and at least 99.5% of the elements within 2 ulps of
+    their own magnitude (floored at 2^-8 of the max, as ``check_conv``)."""
+    err = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    max_err = float(err.max())
+    if dtype == torch.float32:
+        ok, frac = max_err <= 1e-4 * top, 1.0
+    else:
+        floor = torch.clamp(want.float().abs(), min=top * 2.0 ** -8)
+        frac = float((err <= 2 * bf16_ulp(floor)).float().mean())
+        ok = (frac >= 0.995
+              and max_err <= 2 * float(bf16_ulp(torch.tensor(top))))
+    if not ok:
+        raise AssertionError(f"{name}: kernel != twin (max abs err "
+                             f"{max_err:.3g}, max |y| {top:.3g}, within 2 "
+                             f"ulps {frac:.5f})")
+    return max_err
+
+
+def phase_convblock():
+    """K4 against its twin, f32 and bf16, at the fused sweep's three block
+    shapes and a ragged one, with non-zero affines (a non-zero b1 shows a
+    T that is not zero outside the volume); times in bf16 at the block
+    shapes: the kernel (weights packed once, as the main path calls it), the
+    twin, and the library call — the module ConvBlock in eval mode."""
+    from tpuseg_torch.models.blocks import ConvBlock
+    from tpuseg_torch.ops.convblock import (fused_convblock,
+                                            fused_convblock_plain, pack_weights)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+
+    worst, times = 0.0, {}
+    for shape in (BLOCK_SHAPE, RAGGED_BLOCK_SHAPE):
+        n, sp = shape[0], shape[1:]
+        for ci in BLOCK_CI:
+            w1 = randn(32, ci, 3, 3, 3) / (27 * ci) ** 0.5
+            w2 = randn(32, 32, 3, 3, 3) / (27 * 32) ** 0.5
+            s1, s2 = (0.5 + torch.rand(32, device="cuda", generator=g)
+                      for _ in range(2))
+            b1, b2 = 0.5 * randn(32), 0.5 * randn(32)
+            x32 = randn(n, ci, *sp)
+            for name in ("float32", "bfloat16"):
+                dtype = getattr(torch, name)
+                x = x32.to(dtype)
+                got = fused_convblock(x, w1, s1, b1, w2, s2, b2, name)
+                want = fused_convblock_plain(x, w1, s1, b1, w2, s2, b2, name)
+                torch.cuda.synchronize()
+                worst = max(worst, check_block(
+                    f"fused_convblock ci={ci} {tuple(shape)} {name}", got,
+                    want, dtype))
+                del got, want
+                if shape != BLOCK_SHAPE or dtype != torch.bfloat16:
+                    continue
+                w1k, w2k = pack_weights(w1, name), pack_weights(w2, name)
+                block = ConvBlock(ci, 32).cuda().eval()
+                with torch.no_grad():
+                    block.conv0.weight.copy_(w1)
+                    block.conv1.weight.copy_(w2)
+                    for norm, s, b in ((block.norm0, s1, b1),
+                                       (block.norm1, s2, b2)):
+                        norm.weight.copy_(s)
+                        norm.bias.copy_(b)
+
+                    times[ci] = (
+                        cuda_ms(lambda: fused_convblock(
+                            x, w1k, s1, b1, w2k, s2, b2, name), 3),
+                        cuda_ms(lambda: fused_convblock_plain(
+                            x, w1, s1, b1, w2, s2, b2, name), 3),
+                        cuda_ms(lambda: block(x), 5))
+            del x32
+    vox = int(np.prod(BLOCK_SHAPE))
+    records = {}
+    for ci, (ms, plain_ms, lib_ms) in times.items():
+        # 2*27*32*(ci + 32) FLOP per voxel on the tensor cores' rate; x and
+        # the output in bf16, the weights and affines in f32
+        records[ci] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            **bound((ci + 32) * vox * 2 + 27 * 32 * (ci + 32) * 4 + 4 * 32 * 4,
+                    2 * 27 * 32 * (ci + 32) * vox, BF16_FLOPS)}
+        fma = 27 * 32 * (ci + 32) * vox
+        print(f"[10] fused_convblock ci={ci} {BLOCK_SHAPE} bf16: kernel "
+              f"{ms:.3f} ms ({fma / ms / 1e9:.2f} T FMA/s), twin "
+              f"{plain_ms:.3f} ms, library ConvBlock {lib_ms:.3f} ms, bound "
+              f"{records[ci]['bound_ms']:.3f} ms by {records[ci]['bound_by']}")
+    print(f"[10] fused_convblock == twin (f32 and bf16) at {BLOCK_SHAPE} and "
+          f"{RAGGED_BLOCK_SHAPE}, ci in {BLOCK_CI}; max abs err {worst:.3g}; "
+          f"one tile's three blocks {sum(t[0] for t in times.values()):.3f} ms "
+          f"against the library's {sum(t[2] for t in times.values()):.3f} ms")
+    # the record: the up0.block shape (ci = 64), the largest of the three
+    return {"max_abs_err": worst, "shape": [1, 64, *BLOCK_SHAPE[1:]],
+            **records[64]}
+
+
+def pool_nms(peak, threshold: float, radius):
+    """The library call timed beside K5: ``F.max_pool3d`` local maxima at or
+    above the threshold, without the index tie-break on plateaus (float
+    pools cannot hold the indices) — timing only, used nowhere in the port."""
+    k = tuple(2 * r + 1 for r in radius)
+    mx = torch.nn.functional.max_pool3d(peak[None, None], k, stride=1,
+                                        padding=tuple(radius))[0, 0]
+    return (peak >= threshold) & (peak >= mx)
+
+
+def phase_nms(image: np.ndarray):
+    """K5 against its twin, elementwise, at the main-path shape and a ragged
+    one with a per-axis radius, plateaus included; times at the main-path
+    shape."""
+    from tpuseg_torch.data import synthesize_volume
+    from tpuseg_torch.ops.nms import fused_peak_nms, fused_peak_nms_plain
+
+    thr = 0.5
+    _, pk = analytic_maps(image, "cuda")
+    ragged = synthesize_volume(shape=RAGGED_SHAPE, num_instances=40,
+                               seed=SEED + 1).image
+    _, pk_r = analytic_maps(ragged, "cuda")
+    cases = [("main", pk, (2, 2, 2)), ("ragged", pk_r, (1, 2, 2)),
+             # quantized to 1/8: every blob top is a plateau of exact ties
+             ("ragged plateaus", torch.round(pk_r * 8) / 8, (1, 2, 2)),
+             ("ragged, radius 0 on z", pk_r, (0, 2, 1))]
+    n_seeds = {}
+    for tag, peak, radius in cases:
+        got = fused_peak_nms(peak, thr, radius)
+        want = fused_peak_nms_plain(peak, thr, radius)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bool or not torch.equal(got, want):
+            raise AssertionError(f"fused_peak_nms ({tag}): kernel != twin on "
+                                 f"{int((got != want).sum())} voxels")
+        n_seeds[tag] = int(got.sum())
+    radius = cases[0][2]
+    ms = cuda_ms(lambda: fused_peak_nms(pk, thr, radius), 5)
+    plain_ms = cuda_ms(lambda: fused_peak_nms_plain(pk, thr, radius), 2)
+    lib_ms = cuda_ms(lambda: pool_nms(pk, thr, radius), 5)
+    # must read 4 B and write 1 B per voxel; about 40 compares per voxel
+    # (two separable 5-wide pools on three axes and the candidate tests)
+    rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms,
+           **bound(5 * pk.numel(), 40 * pk.numel(), F32_FLOPS)}
+    print(f"[11] fused_peak_nms == twin elementwise: seeds {n_seeds}; at "
+          f"{MAIN_SHAPE} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+          f"F.max_pool3d NMS (no tie-break) {lib_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}")
+    return rec
+
+
+def _run_cli_infer(tmp, ckpt, vol_path, tag, *sets):
+    """``cli.infer`` on the stack with ``--set`` overrides, the launch
+    counts set to 0 just before and read just after; returns (labels,
+    launches, status)."""
+    from tpuseg_torch.cli import infer as cli_infer
+
+    out_path = os.path.join(tmp, f"labels_{tag}.npy")
+    argv = ["--checkpoint", ckpt, "--input", vol_path, "--output", out_path,
+            "--report-convergence"]
+    for kv in sets:
+        argv += ["--set", kv]
+    _reset_launches()
+    status = cli_infer.main(argv)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if status not in (0, 4):
+        raise AssertionError(f"cli.infer ({tag}) returned {status}")
+    return np.load(out_path), launches, status
+
+
+def profile_device_time(label: str, fn, top: int = 8) -> None:
+    """Print where the device time of one warm ``fn()`` goes: the kernels by
+    name, from ``torch.profiler`` (informational; a profiler that sees no
+    device time prints "not measured")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", 0) or 0
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    total = sum(kernels.values())
+    if total == 0:
+        print(f"[12] profile of {label}: device time not measured")
+        return
+    # the host's wall time under the profiler is the profiler's own: the
+    # busy share is this sum over the warm wall time printed above
+    print(f"[12] profile of {label}: device kernels {total:.1f} ms in all; "
+          f"top {top} by device time:")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"       {ms:9.2f} ms {100 * ms / total:5.1f}%  {key[:90]}")
+
+
+def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
+                          tmp: str):
+    """The main path under ``infer.apply_impl="fused"`` (K4), then under
+    ``postproc.nms_impl="pallas"`` (K5) and ``postproc.method="flood"``, on
+    the stack and the seeded checkpoint of phase 4."""
+    from tpuseg_torch.ckpt import load_pth
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.infer import make_infer_stages
+    from tpuseg_torch.models import build_model
+
+    cfg = Config()
+    fused_cfg = cfg.override(**{"infer.apply_impl": "fused"})
+    ckpt = os.path.join(tmp, "seeded.pth")
+    vol_path = os.path.join(tmp, "volume.npy")
+    write_seeded_checkpoint(ckpt, cfg.model)
+    np.save(vol_path, image)
+
+    labels, launches, status = _run_cli_infer(
+        tmp, ckpt, vol_path, "fused", 'infer.apply_impl="fused"')
+    k4_launches = launches["fused_convblock"]
+    ids = np.unique(labels)
+    print(f"[12] cli.infer, fused apply: status {status}, {ids.size - 1} "
+          f"instances (plain apply: {int(default_labels.max())}); kernel "
+          f"launches {launches}")
+    if launches["fused_convblock"] != 3 * N_TILES:
+        raise AssertionError(f"fused main path launched K4 "
+                             f"{launches['fused_convblock']} times, not "
+                             f"{3 * N_TILES}")
+    missing = [k for k in INFER_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"fused main path never launched {missing}")
+    if (labels.shape != MAIN_SHAPE or labels.dtype != np.int32
+            or not np.array_equal(ids, np.arange(ids.size)) or ids.size < 2):
+        raise AssertionError(f"fused main path: bad labels {labels.shape} "
+                             f"{labels.dtype} ids {ids[:5]}...{ids[-5:]}")
+
+    # warm stage times, plain and fused in turns
+    model = build_model(cfg.model)
+    model.load_state_dict(load_pth(ckpt))
+    model.cuda()
+    vol = torch.from_numpy(image).cuda()
+    stages = {"plain": make_infer_stages(model, cfg),
+              "fused": make_infer_stages(model, fused_cfg)}
+    times = {"plain": [], "fused": []}
+    logits = {}
+    for tag in ("plain", "fused", "fused", "plain"):
+        _, stage_net, stage_post = stages[tag]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[tag] = stage_net(vol)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stage_post(logits[tag])
+        torch.cuda.synchronize()
+        times[tag].append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+    vox = int(np.prod(MAIN_SHAPE))
+    for tag, runs in times.items():
+        net, post = min(runs)
+        print(f"[12] warm, {tag} apply: net sweep "
+              f"{' / '.join(f'{r[0]:.1f}' for r in runs)} ms, post "
+              f"{' / '.join(f'{r[1]:.1f}' for r in runs)} ms; best total "
+              f"{net + post:.1f} ms ({vox / (net + post) / 1e3:.2f} Mvox/s)")
+
+    for tag in ("plain", "fused"):
+        profile_device_time(
+            f"one warm {tag} call (sweep + post-processing)",
+            lambda: stages[tag][2](stages[tag][1](vol)))
+
+    # the fused sweep once more through K4's twin: the logits are bf16, and a
+    # block output that rounds the other way (see check_block) moves on
+    # through the mid net, so the bound is on the logits' scale: every voxel
+    # within 0.1 of the largest |logit| and 99.5% within 0.02 of it
+    twin = make_infer_stages(model, fused_cfg, plain=True)[1](vol)
+    worst = {}
+    for k, got in logits["fused"].items():
+        want = twin[k]
+        if got.shape != MAIN_SHAPE or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"fused {k}: shape {tuple(got.shape)} or "
+                                 "non-finite")
+        err = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        frac = float((err <= 0.02 * top).float().mean())
+        worst[k] = (float(err.max()), float(err.mean()), top, frac)
+        if float(err.max()) > 0.1 * top or frac < 0.995:
+            raise AssertionError(f"fused {k}: kernel != twin sweep: {worst[k]}")
+    print(f"[12] fused logits, K4 vs its twin over the whole sweep (max abs "
+          f"err, mean abs err, max |logit|, share within 2% of it): {worst}")
+    plain_diff = {k: float((logits["fused"][k].float()
+                            - logits["plain"][k].float()).abs().mean())
+                  for k in logits["fused"]}
+    print(f"[12] fused vs plain-module logits, mean abs difference: "
+          f"{plain_diff}")
+
+    labels, launches, status = _run_cli_infer(
+        tmp, ckpt, vol_path, "nms", 'postproc.nms_impl="pallas"')
+    print(f"[12] cli.infer, nms_impl=pallas: status {status}, "
+          f"{int(labels.max())} instances; kernel launches {launches}")
+    if launches["fused_peak_nms"] == 0:
+        raise AssertionError("nms_impl='pallas' never launched K5")
+    if not np.array_equal(labels, default_labels):
+        raise AssertionError(f"nms_impl='pallas' labels != default path on "
+                             f"{int((labels != default_labels).sum())} voxels")
+    print("[12] nms_impl=pallas labels == default (K1) path's, elementwise")
+
+    flood_cfg = cfg.override(**{"postproc.nms_impl": "pallas",
+                                "postproc.method": "flood"})
+    got = make_infer_stages(model, flood_cfg)[2](logits["plain"])
+    want = make_infer_stages(model, flood_cfg, plain=True)[2](logits["plain"])
+    if not torch.equal(got, want):
+        raise AssertionError(f"method='flood': kernels != twins on "
+                             f"{int((got != want).sum())} voxels")
+    print(f"[12] method=flood, nms_impl=pallas: kernels == twins elementwise "
+          f"({int(got.max())} instances)")
+
+    # warm post-processing time of each composition on the same logits
+    post_ms = {}
+    for tag, c in (("default", cfg),
+                   ("nms_impl=pallas",
+                    cfg.override(**{"postproc.nms_impl": "pallas"})),
+                   ("method=flood, nms_impl=pallas", flood_cfg)):
+        post = make_infer_stages(model, c)[2]
+        post(logits["plain"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post(logits["plain"])
+        torch.cuda.synchronize()
+        post_ms[tag] = round(1e3 * (time.perf_counter() - t0), 1)
+    print(f"[12] warm post-processing ms by composition: {post_ms}")
+    return {"fused_convblock": k4_launches,
+            "fused_peak_nms": launches["fused_peak_nms"]}
 
 
 def _timed(label, fn, *args):
@@ -575,32 +998,63 @@ def _timed(label, fn, *args):
     return out
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phases to run after 1-2 "
+                             "(default: all, with the final record)")
+    only = {int(p) for p in parser.parse_args(argv).phases.split(",") if p}
+    if 12 in only:
+        only.add(4)                     # phase 12 compares with phase 4's labels
+
+    def want(phase):
+        return not only or phase in only
+
     name, smi = phase_device()
     phase_build()
     from tpuseg_torch.data import synthesize_volume
 
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
-    kernels = _timed("phase 3", phase_kernels, sv.image)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches, ckpt, cfg = _timed("phase 4", phase_main_path, sv.image, tmp)
-        _timed("phase 4 warm", phase_warm_stages, sv.image, ckpt, cfg)
-    _timed("phase 5", phase_analytic, sv)
-    conv_err, conv_times = _timed("phase 6", phase_conv)
-    with tempfile.TemporaryDirectory() as tmp:
-        train_launches = _timed("phase 7", phase_train_main_path, tmp)
-    _timed("phase 8", phase_fused_vs_plain)
-    with tempfile.TemporaryDirectory() as tmp:
-        _timed("phase 9", phase_trained_quality, sv, tmp)
+    kernels, launches = {}, {}
+    if want(3):
+        kernels.update(_timed("phase 3", phase_kernels, sv.image))
+    if want(4):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, ckpt, cfg, default_labels = _timed(
+                "phase 4", phase_main_path, sv.image, tmp)
+            _timed("phase 4 warm", phase_warm_stages, sv.image, ckpt, cfg)
+    if want(5):
+        _timed("phase 5", phase_analytic, sv)
+    if want(6):
+        kernels["conv3x3_raw"] = _timed("phase 6", phase_conv)
+    if want(7):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches["conv3x3_raw"] = _timed(
+                "phase 7", phase_train_main_path, tmp)["conv3x3_raw"]
+    if want(8):
+        _timed("phase 8", phase_fused_vs_plain)
+    if want(9):
+        with tempfile.TemporaryDirectory() as tmp:
+            _timed("phase 9", phase_trained_quality, sv, tmp)
+    if want(10):
+        kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
+    if want(11):
+        kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
+    if want(12):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(_timed("phase 12", phase_fused_main_path,
+                                   sv.image, default_labels, tmp))
+    if only:
+        print(f"phases {sorted(only)} passed; run without --phases for the "
+              "whole check and its record")
+        return
 
-    ms, plain_ms = conv_times[("fwd", 32)]
-    kernels["conv3x3_raw"] = (conv_err, ms, plain_ms)
-    launches["conv3x3_raw"] = train_launches["conv3x3_raw"]
     record = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
-               "replaces": KERNELS[k][1], "launches": launches[k],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-              for k, (err, ms, plain_ms) in kernels.items()]
+               "replaces": KERNELS[k][1], "launches": launches[k], **r}
+              for k, r in kernels.items()]
+    if sorted(r["name"] for r in record) != sorted(KERNELS):
+        raise AssertionError(f"kernel record incomplete: {record}")
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

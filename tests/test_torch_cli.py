@@ -21,7 +21,7 @@ from tpuseg.models import build_model as ref_build_model
 from tpuseg_torch.cli import infer as cli_infer
 from tpuseg_torch.infer import make_infer_fn, make_infer_stages
 
-from test_torch_model import (_port_model, _randomized_variables,
+from test_torch_model import (_port_model, _randomized_variables, port_config,
                               single_torch_thread)  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,8 +54,8 @@ def case(tmp_path_factory):
         "model.compute_dtype": "float32", "infer.compute_dtype": "float32",
         "infer.tile": [16, 32, 32], "infer.halo": 12,
         "postproc.min_size": 5})
-    logits = make_infer_stages(_port_model(mcfg, variables), cfg)[1](
-        torch.from_numpy(image))
+    logits = make_infer_stages(_port_model(mcfg, variables),
+                               port_config(cfg))[1](torch.from_numpy(image))
     thr = {k: float(np.quantile(torch.sigmoid(logits[f"{k}_logits"]).numpy(), q))
            for k, q in (("fg", 0.5), ("peak", 0.9))}
     cfg = cfg.override(**{"postproc.fg_threshold": thr["fg"],
@@ -79,7 +79,8 @@ def test_cli_labels_match(case):
     assert got.dtype == np.int32 and got.max() >= 3
     # the same code in-process: identical
     port = make_infer_fn(_port_model(case["mcfg"], case["variables"]),
-                         case["cfg"])(torch.from_numpy(case["image"])).numpy()
+                         port_config(case["cfg"]))(
+        torch.from_numpy(case["image"])).numpy()
     np.testing.assert_array_equal(got, port)
     # the JAX package on the same weights: float32 summation order only
     # (test_torch_pipeline.py's bound)
@@ -138,6 +139,26 @@ def test_cli_calibrate_from_matches_reference(case, capsys):
     assert (got == want).mean() >= 0.99
 
 
+def test_cli_postproc_settings(case):
+    """``--set postproc.nms_impl="pallas"`` (the NMS kernel's composition)
+    writes the default path's labels; ``postproc.method="flood"`` runs and
+    labels the same foreground."""
+    outs = {}
+    for tag, sets in (("default", []),
+                      ("nms", ["--set", 'postproc.nms_impl="pallas"']),
+                      ("flood", ["--set", 'postproc.method="flood"'])):
+        out = str(case["tmp"] / f"post_{tag}.npy")
+        status = cli_infer.main([
+            "--device", "cpu", "--checkpoint", case["ckpt"], "--input",
+            case["vol"], "--output", out, "--config", case["cfg_path"], *sets])
+        assert status == 0
+        outs[tag] = np.load(out)
+    assert outs["default"].max() >= 3
+    np.testing.assert_array_equal(outs["nms"], outs["default"])
+    assert outs["flood"].max() >= 3
+    assert ((outs["flood"] > 0) == (outs["default"] > 0)).mean() >= 0.99
+
+
 @pytest.mark.parametrize("flag", [["--stream", "8"], ["--shard", "z2"],
                                   ["--resume-dir", "d"], ["--validate"]])
 def test_cli_unported_flags_error(case, flag, capsys):
@@ -158,7 +179,7 @@ def test_cli_cuda_without_card_raises(case):
 
 NO_JAX = """
 import sys
-for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint"):
+for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "tpuseg"):
     sys.modules[name] = None            # any import of them now fails
 import json, os, tempfile
 import numpy as np, torch
@@ -168,7 +189,7 @@ from tpuseg_torch import ckpt, core, data, eval, infer, models, ops
 from tpuseg_torch.cli import common, infer as cli_infer, train as cli_train
 from tpuseg_torch.core import Config, InferConfig
 from tpuseg_torch import losses, train
-from tpuseg_torch.models import fused_train
+from tpuseg_torch.models import fused_eval, fused_train
 
 sv = data.synthesize_volume(shape=(12, 24, 40), num_instances=4,
                             radius_range=(3.0, 4.0), seed=1)
@@ -207,8 +228,18 @@ with tempfile.TemporaryDirectory() as tmp:
         "--set", "model.features=[32,64]", "--set", "infer.tile=[12,24,40]",
         "--set", "infer.halo=0"])
     assert status == 0 and np.load(os.path.join(tmp, "o2.npy")).shape == (12, 24, 40)
+    # the same through the fused eval apply and the NMS kernel's composition
+    # (their plain twins on the CPU)
+    status = cli_infer.main([
+        "--device", "cpu", "--checkpoint", ck,
+        "--input", os.path.join(tmp, "v.npy"),
+        "--output", os.path.join(tmp, "o3.npy"),
+        "--set", "model.features=[32,64]", "--set", "infer.tile=[12,24,40]",
+        "--set", "infer.halo=0", "--set", 'infer.apply_impl="fused"',
+        "--set", 'postproc.nms_impl="pallas"'])
+    assert status == 0 and np.load(os.path.join(tmp, "o3.npy")).shape == (12, 24, 40)
 loaded = [m for m, v in sys.modules.items() if v is not None
-          and m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")]
+          and m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "tpuseg")]
 assert not loaded, loaded
 print("NO_JAX_OK")
 """

@@ -22,6 +22,7 @@ from tpuseg.core import ModelConfig
 from tpuseg.infer.tiles import tiled_forward as ref_tiled_forward
 from tpuseg.models import build_model as ref_build_model
 from tpuseg_torch.ckpt import load_pth, port_state_from_jax
+from tpuseg_torch.core import config as port_config_module
 from tpuseg_torch.infer.tiles import halo3, rf_radius_bound, tile_grid, tiled_forward
 from tpuseg_torch.models import UNet3D, build_model
 
@@ -39,12 +40,22 @@ def single_torch_thread():
     torch.set_num_threads(n)
 
 
+def port_config(cfg):
+    """A config dataclass of the JAX package as the port's own class of the
+    same name: the port's functions get the port's config (the two schemas
+    are held together by tests/test_torch_config.py)."""
+    import dataclasses
+
+    cls = getattr(port_config_module, type(cfg).__name__)
+    return port_config_module._build(cls, dataclasses.asdict(cfg))
+
+
 def _randomized_variables(cfg, seed=0):
     """Flax variables (numpy) with random kernels, BN affines and BN
     statistics. The tree comes from the JAX package's own .pth importer,
     and ``model.apply`` checks it is complete."""
     rng = np.random.default_rng(seed)
-    sd = UNet3D(cfg).state_dict()
+    sd = UNet3D(port_config(cfg)).state_dict()
     variables = flax_variables_from_torch(sd)
 
     def rand(path, x):
@@ -70,7 +81,7 @@ def _ref_apply(cfg, variables, x):
 
 
 def _port_model(cfg, variables):
-    model = UNet3D(cfg)
+    model = UNet3D(port_config(cfg))
     model.load_state_dict(port_state_from_jax(variables))
     return model.eval()
 
@@ -99,7 +110,7 @@ def test_state_keys_match_mirror_export(tmp_path):
     path = str(tmp_path / "export.pth")
     torch.save(torch_state_dict_from_flax(variables), path)
     sd = load_pth(path)
-    assert set(sd) == set(UNet3D(cfg).state_dict())
+    assert set(sd) == set(UNet3D(port_config(cfg)).state_dict())
     ref = port_state_from_jax(variables)
     for k, v in sd.items():
         assert torch.equal(v, ref[k]), k
@@ -107,6 +118,7 @@ def test_state_keys_match_mirror_export(tmp_path):
 
 def test_build_model_is_seeded():
     cfg = ModelConfig(**SMALL)
+    cfg = port_config(cfg)
     a, b = build_model(cfg, seed=3), build_model(cfg, seed=3)
     c = build_model(cfg, seed=4)
     for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
@@ -116,7 +128,7 @@ def test_build_model_is_seeded():
 
 def test_unported_model_config_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet3D(ModelConfig(norm="group", **SMALL))
+        UNet3D(port_config(ModelConfig(norm="group", **SMALL)))
 
 
 def test_tile_helpers_match():

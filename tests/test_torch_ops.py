@@ -111,12 +111,18 @@ def test_watershed_matches_reference():
         watershed(_t(fg_prob), _t(peak), plain=True, **kw).numpy(), want)
 
 
-@pytest.mark.parametrize("kw", [{"method": "flood"}, {"label_space": "dense"},
-                                {"nms_impl": "pallas"},
-                                {"resolve_impl": "xla"}])
-def test_watershed_unported_settings_raise(kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"method": "bogus"}, ValueError, "unknown watershed method"),
+    ({"label_space": "dense"}, NotImplementedError, "ROADMAP"),
+    ({"nms_impl": "bogus"}, ValueError, "unknown nms_impl"),
+    ({"resolve_impl": "xla"}, NotImplementedError, "ROADMAP")],
+    ids=["kw0", "kw1", "kw2", "kw3"])
+def test_watershed_unported_settings_raise(kw, exc, match):
+    """Settings not ported yet raise NotImplementedError; unknown values
+    raise ValueError, as in the JAX package (``method="flood"`` and
+    ``nms_impl="pallas"`` are ported: tests/test_torch_nms.py)."""
     fg_prob, peak = _maps(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         watershed(_t(fg_prob), _t(peak), **kw)
 
 

@@ -20,12 +20,15 @@ from tpuseg.core import Config, InferConfig, ModelConfig, PostprocConfig
 from tpuseg.data import synthesize_volume
 from tpuseg.infer import make_infer_fn as ref_make_infer_fn
 from tpuseg.models import build_model as ref_build_model
+from tpuseg_torch.core import Config as PortConfig
+from tpuseg_torch.core import ModelConfig as PortModelConfig
 from tpuseg_torch.infer import make_infer_fn, make_infer_stages
 from tpuseg_torch.models import UNet3D
 
 from chip_smoke import AnalyticNet      # the same stand-in as a torch module
 from test_torch_model import (_port_model, _randomized_variables,
                               single_torch_thread)  # noqa: F401
+from test_torch_model import port_config as _port_cfg
 
 
 class RefAnalyticNet(fnn.Module):
@@ -59,7 +62,8 @@ def test_analytic_pipeline_labels_equal(volume, normalize, infer):
     image = volume.image * (517.0 if normalize else 1.0)
     want = np.asarray(ref_make_infer_fn(RefAnalyticNet(), cfg, normalize)(
         {"params": {}}, jnp.asarray(image)))
-    got = make_infer_fn(AnalyticNet(), cfg, normalize)(torch.from_numpy(image))
+    got = make_infer_fn(AnalyticNet(), _port_cfg(cfg), normalize)(
+        torch.from_numpy(image))
     assert got.dtype == torch.int32
     assert want.max() >= 5
     np.testing.assert_array_equal(got.numpy(), want)
@@ -71,15 +75,17 @@ def test_analytic_pipeline_diagnostics(volume):
     want, wdiag = ref_make_infer_fn(RefAnalyticNet(), cfg,
                                     with_diagnostics=True)(
         {"params": {}}, jnp.asarray(volume.image))
-    got, diag = make_infer_fn(AnalyticNet(), cfg, with_diagnostics=True)(
+    got, diag = make_infer_fn(AnalyticNet(), _port_cfg(cfg),
+                              with_diagnostics=True)(
         torch.from_numpy(volume.image))
     assert diag["flood_truncated"] == int(wdiag["flood_truncated"]) > 0
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_stages_compose_and_plain_twins_agree(volume):
-    infer, stage_net, stage_post = make_infer_stages(AnalyticNet(), _cfg())
-    _, _, plain_post = make_infer_stages(AnalyticNet(), _cfg(), plain=True)
+    cfg = _port_cfg(_cfg())
+    infer, stage_net, stage_post = make_infer_stages(AnalyticNet(), cfg)
+    _, _, plain_post = make_infer_stages(AnalyticNet(), cfg, plain=True)
     vol = torch.from_numpy(volume.image)
     logits = stage_net(vol)
     assert logits["fg_logits"].shape == vol.shape
@@ -98,7 +104,8 @@ def test_unet_pipeline_instance_agreement(volume):
     variables = _randomized_variables(mcfg, seed=7)
     model = _port_model(mcfg, variables)
     cfg = dataclasses.replace(_cfg(halo=12, tile=(16, 32, 64)), model=mcfg)
-    logits = make_infer_stages(model, cfg)[1](torch.from_numpy(volume.image))
+    logits = make_infer_stages(model, _port_cfg(cfg))[1](
+        torch.from_numpy(volume.image))
     fg_thr, peak_thr = (
         float(np.quantile(torch.sigmoid(logits[k]).numpy(), q))
         for k, q in (("fg_logits", 0.5), ("peak_logits", 0.9)))
@@ -107,16 +114,85 @@ def test_unet_pipeline_instance_agreement(volume):
         flood_iters=64))
     want = np.asarray(ref_make_infer_fn(ref_build_model(mcfg), cfg)(
         jax.tree.map(jnp.asarray, variables), jnp.asarray(volume.image)))
-    got = make_infer_fn(model, cfg)(torch.from_numpy(volume.image)).numpy()
+    got = make_infer_fn(model, _port_cfg(cfg))(
+        torch.from_numpy(volume.image)).numpy()
     assert want.max() >= 5
     assert abs(int(got.max()) - int(want.max())) <= 2
     assert (got == want).mean() >= 0.99
 
 
+def test_fused_pipeline_instance_agreement(volume):
+    """``infer.apply_impl="fused"`` (K4's path; its plain twin on the CPU)
+    against the JAX pipeline under the same setting (Pallas in interpret
+    mode): small random U-Net of the fused family, float32, thresholds at
+    quantiles of its own probability maps; instance count within 2 and
+    >= 99% voxel agreement, as ``test_unet_pipeline_instance_agreement``.
+    The fused logits equal the module path's to summation order."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    mcfg = ModelConfig(features=(32, 64), head_features=32,
+                       compute_dtype="float32")
+    variables = _randomized_variables(mcfg, seed=11)
+    model = _port_model(mcfg, variables)
+    cfg = dataclasses.replace(_cfg(apply_impl="fused"), model=mcfg)
+    vol = torch.from_numpy(volume.image)
+    logits = make_infer_stages(model, _port_cfg(cfg))[1](vol)
+    plain = make_infer_stages(model, _port_cfg(dataclasses.replace(
+        cfg, infer=dataclasses.replace(cfg.infer, apply_impl="flax"))))[1](vol)
+    for k in logits:
+        np.testing.assert_allclose(logits[k].numpy(), plain[k].numpy(),
+                                   rtol=2e-3, atol=2e-3)
+    fg_thr, peak_thr = (
+        float(np.quantile(torch.sigmoid(logits[k]).numpy(), q))
+        for k, q in (("fg_logits", 0.5), ("peak_logits", 0.9)))
+    cfg = dataclasses.replace(cfg, postproc=dataclasses.replace(
+        cfg.postproc, fg_threshold=fg_thr, peak_threshold=peak_thr,
+        flood_iters=64))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ref_make_infer_fn(ref_build_model(mcfg), cfg)(
+            jax.tree.map(jnp.asarray, variables), jnp.asarray(volume.image)))
+    got = make_infer_fn(model, _port_cfg(cfg))(vol).numpy()
+    assert want.max() >= 5
+    assert abs(int(got.max()) - int(want.max())) <= 2
+    assert (got == want).mean() >= 0.99
+
+
+@pytest.mark.parametrize("postproc", [{"nms_impl": "pallas"},
+                                      {"method": "flood"},
+                                      {"method": "flood", "nms_impl": "pallas"}],
+                         ids=["nms_pallas", "flood", "flood_nms_pallas"])
+def test_analytic_pipeline_postproc_settings_equal(volume, postproc):
+    """The peak-NMS kernel's composition and ``method="flood"`` through the
+    whole pipeline: labels elementwise equal to the JAX pipeline's, and
+    ``nms_impl="pallas"`` equal to the default path's."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    cfg = dataclasses.replace(_cfg(), postproc=dataclasses.replace(
+        _cfg().postproc, **postproc))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ref_make_infer_fn(RefAnalyticNet(), cfg)(
+            {"params": {}}, jnp.asarray(volume.image)))
+    vol = torch.from_numpy(volume.image)
+    got = make_infer_fn(AnalyticNet(), _port_cfg(cfg))(vol)
+    assert want.max() >= 5
+    np.testing.assert_array_equal(got.numpy(), want)
+    if postproc == {"nms_impl": "pallas"}:
+        assert torch.equal(got, make_infer_fn(AnalyticNet(),
+                                              _port_cfg(_cfg()))(vol))
+
+
 @pytest.mark.parametrize("key,value", [("infer.apply_impl", "fused"),
-                                       ("postproc.nms_impl", "pallas"),
+                                       ("infer.apply_impl", "bogus"),
                                        ("postproc.merge_saddle_ratio", 0.8)])
 def test_unported_config_raises(key, value):
-    cfg = Config().override(**{key: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_infer_fn(UNet3D(ModelConfig(features=(4, 8), head_features=4)), cfg)
+    """What ``make_infer_fn`` refuses: an option not ported yet
+    (NotImplementedError), the fused apply for a model outside its family
+    and an unknown ``apply_impl`` (ValueError, as the JAX pipeline)."""
+    exc, match = {
+        "fused": (ValueError, "fused eval apply requires"),
+        "bogus": (ValueError, "unknown apply_impl"),
+        0.8: (NotImplementedError, "ROADMAP")}[value]
+    cfg = PortConfig().override(**{key: value})
+    with pytest.raises(exc, match=match):
+        make_infer_fn(UNet3D(PortModelConfig(features=(4, 8), head_features=4)),
+                      cfg)

@@ -17,7 +17,7 @@ from tpuseg.losses import peak_loss as ref_peak_loss
 from tpuseg.losses import total_loss as ref_total_loss
 from tpuseg_torch.losses import fg_loss, peak_loss, total_loss
 
-from test_torch_model import single_torch_thread  # noqa: F401
+from test_torch_model import port_config, single_torch_thread  # noqa: F401
 
 SHAPE = (3, 6, 10, 12)
 
@@ -79,7 +79,7 @@ def test_total_loss_matches(case):
     logits = {k: torch.from_numpy(case[k].copy()).requires_grad_()
               for k in ("fg_logits", "peak_logits")}
     tgts = {k: torch.from_numpy(case[k]) for k in ("peak", "fg", "fg_weight")}
-    loss, metrics = total_loss(logits, tgts, cfg)
+    loss, metrics = total_loss(logits, tgts, port_config(cfg))
     loss.backward()
 
     def ref(out):

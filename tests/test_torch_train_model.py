@@ -42,7 +42,7 @@ from tpuseg_torch.models.fused_train import make_fused_train_apply
 from tpuseg_torch.ops import convtrain
 from tpuseg_torch.ops.convtrain import conv3x3, conv3x3_plain, flip_w
 
-from test_torch_model import (_port_model, _randomized_variables,
+from test_torch_model import (_port_model, _randomized_variables, port_config,
                               single_torch_thread)  # noqa: F401
 
 PATCH = (8, 16, 64)
@@ -183,8 +183,8 @@ def test_fused_apply_rejects_other_families():
     from tpuseg_torch.models import UNet3D
 
     with pytest.raises(ValueError, match="flagship"):
-        make_fused_train_apply(UNet3D(ModelConfig(features=(16, 32),
-                                                  head_features=16)))
+        make_fused_train_apply(UNet3D(port_config(
+            ModelConfig(features=(16, 32), head_features=16))))
 
 
 def _ncdhw(a):

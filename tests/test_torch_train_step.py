@@ -39,7 +39,7 @@ from tpuseg_torch.data import PatchSampler, synthesize_volume
 from tpuseg_torch.train import (AdamW, create_train_state, lr_schedule,
                                 make_train_step, prepare_batch)
 
-from test_torch_model import (_port_model, _randomized_variables,
+from test_torch_model import (_port_model, _randomized_variables, port_config,
                               single_torch_thread)  # noqa: F401
 
 
@@ -89,8 +89,8 @@ def _run_both(cfg, batches, monkeypatch, grad_accum=1, seed=3):
         ref_metrics.append({k: float(v) for k, v in m.items()})
     # the port
     pmodel = _port_model(cfg.model, variables)
-    pstate = create_train_state(pmodel, cfg)
-    step = make_train_step(pmodel, cfg, grad_accum=grad_accum)
+    pstate = create_train_state(pmodel, port_config(cfg))
+    step = make_train_step(pmodel, port_config(cfg), grad_accum=grad_accum)
     metrics = [{k: float(v) for k, v in step(
         pstate, {k: torch.from_numpy(v) for k, v in b.items()}, 1).items()}
         for b in batches]
@@ -138,7 +138,7 @@ def test_prepare_batch_matches_jax():
         cfg.data, peak_sigma_aniso=True))
     b = _batches(1)[0]
     img, tgt = prepare_batch({k: torch.from_numpy(v) for k, v in b.items()},
-                             cfg, 1, 0)
+                             port_config(cfg), 1, 0)
     want_img, want_tgt = ref_prepare_batch(
         {k: jnp.asarray(v) for k, v in b.items()}, cfg, jax.random.key(0))
     np.testing.assert_array_equal(img.numpy(), np.asarray(want_img)[..., 0])
@@ -153,8 +153,8 @@ def test_augmentation_keyed_on_global_example_index():
     index): the same call repeats, and two half batches at offsets 0 and 2
     reproduce the whole batch (what grad accumulation relies on)."""
     cfg = _cfg(batch=4, augment=True)
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, aug_zscale=(0.5, 1.0)))
+    cfg = port_config(dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, aug_zscale=(0.5, 1.0))))
     b = {k: torch.from_numpy(v) for k, v in _batches(1, batch=4)[0].items()}
     img, tgt = prepare_batch(b, cfg, 5, 7)
     again, _ = prepare_batch(b, cfg, 5, 7)
@@ -212,6 +212,6 @@ def test_adamw_matches_optax(scale):
 def test_data_parallel_is_not_ported():
     from tpuseg_torch.models import UNet3D
 
-    cfg = _cfg()
+    cfg = port_config(_cfg())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(UNet3D(cfg.model), cfg, axis_name="data")

@@ -4,16 +4,18 @@ The JAX package ``tpuseg`` stays the reference: this package mirrors its
 layout (core, data, losses, models, ckpt, ops, infer, train, utils, cli)
 so that each module's counterpart is easy to find, and
 ``tests/test_torch_*.py`` hold it against
-``tpuseg`` on the same inputs. It imports ``torch`` and never JAX; of
-``tpuseg`` it reads only the config dataclasses (``tpuseg.core.config``) and
-the numpy instance metrics (``tpuseg.eval.instance_f1``).
+``tpuseg`` on the same inputs. It imports ``torch``, never JAX and nothing
+of ``tpuseg``: what it needs from a module there (the config dataclasses,
+the numpy instance metrics) it keeps as its own copy.
 
 Ported so far: the single-device inference path (``cli/infer.py`` ->
 ``infer/pipeline.make_infer_fn``) and the single-device weakly-supervised
-training path (``cli/train.py`` -> ``train/loop.train``), with hand-written
-CUDA kernels for the watershed's seed, chase and flood passes and for the
-training path's full-resolution 3x3x3 conv (``csrc/``, built by
-``ops/_build.py`` at first use). ROADMAP.md lists what is still to come.
+training path (``cli/train.py`` -> ``train/loop.train``), with a
+hand-written CUDA kernel for every Pallas kernel of the JAX package: the
+watershed's seed, chase and flood passes, the peak NMS, the fused eval
+ConvBlock and the training path's full-resolution 3x3x3 conv (``csrc/``,
+built by ``ops/_build.py`` at first use). ROADMAP.md lists what is still to
+come.
 """
 
 __version__ = "0.1.0"

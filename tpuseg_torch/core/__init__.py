@@ -1,8 +1,8 @@
-"""Config and dtype policy. The config dataclasses are the JAX package's own
-(``tpuseg.core.config`` is pure dataclasses and imports no JAX), so both
-packages read one schema and one JSON format."""
+"""Config and dtype policy. The config dataclasses are the port's own copy
+(``core/config.py``) of the JAX package's: same fields, defaults and JSON
+format, so one config file serves both packages."""
 
-from tpuseg.core.config import (
+from tpuseg_torch.core.config import (
     Config,
     DataConfig,
     InferConfig,

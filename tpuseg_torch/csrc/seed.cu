@@ -11,8 +11,8 @@
 //   v0    = +(lin+1) at seeded roots, -(lin+1) at unseeded roots, 0 elsewhere
 //   v     = h0 lockstep chase steps (the K2 step kernel)
 //
-// The index pool runs on int32: linear indices of the 96x512x512 stack pass
-// 2^24, where a float32 pool would merge neighbouring candidates.
+// The candidate steps (mx, cidx, midx) are nms.cuh's, shared with the
+// peak-NMS kernel (nms.cu).
 //
 // Bound: memory. Each pooling launch reads 4 bytes per voxel (the 2r window
 // along the axis comes from cache) and writes 4; the seed/dirs launch reads
@@ -20,47 +20,10 @@
 // 14 whole-volume passes of ~8 bytes per voxel plus h0 chase steps: at least
 // ~1-2 ms over 96x512x512 at 3.35 TB/s. Fusing it into one shared-memory tile
 // pass, as the TPU kernel does in VMEM, is later work.
-#include "common.cuh"
+#include "nms.cuh"
 
 namespace tpuseg {
 namespace {
-
-__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
-
-// Max over the window [p - r, p + r] along `axis` (0 = z, 1 = y, 2 = x);
-// voxels outside the volume are skipped, which equals a fill below every
-// value (-inf for the peak map, -1 for candidate indices).
-template <typename T>
-__global__ void maxpool_axis_kernel(const T* __restrict__ in,
-                                    T* __restrict__ out, int axis, int r,
-                                    int D, int H, int W) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= W) return;
-  const int y = blockIdx.y;
-  const int z = blockIdx.z;
-  const int i = (z * H + y) * W + x;
-  const int p = axis == 0 ? z : (axis == 1 ? y : x);
-  const int len = axis == 0 ? D : (axis == 1 ? H : W);
-  const int stride = axis == 0 ? H * W : (axis == 1 ? W : 1);
-  T m = in[i];
-  for (int o = 1; o <= r; ++o) {
-    if (p + o < len) m = vmax(m, in[i + o * stride]);
-    if (p - o >= 0) m = vmax(m, in[i - o * stride]);
-  }
-  out[i] = m;
-}
-
-__global__ void candidate_index_kernel(const float* __restrict__ peak,
-                                       const float* __restrict__ mx,
-                                       int* __restrict__ cidx, float thr,
-                                       int D, int H, int W) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= W) return;
-  const int i = (blockIdx.z * H + blockIdx.y) * W + x;
-  const float v = peak[i];
-  cidx[i] = (v >= thr && v >= mx[i]) ? i : -1;
-}
 
 // Seeds, steepest-ascent direction codes and the signed root payload v0.
 __global__ void seed_dirs_kernel(const float* __restrict__ peak,
@@ -98,28 +61,6 @@ __global__ void seed_dirs_kernel(const float* __restrict__ peak,
   v0[i] = (fg && code == 0) ? (seed ? i + 1 : -(i + 1)) : 0;
 }
 
-// Separable max-pool of `src` over radius (rz, ry, rx), ping-ponging between
-// buf0 and buf1; returns the buffer holding the result (src itself when every
-// radius is 0).
-template <typename T>
-const T* maxpool3(const T* src, T* buf0, T* buf1, const int* radius, int D,
-                  int H, int W, cudaStream_t stream, cudaError_t* err) {
-  const dim3 grid = volume_grid(D, H, W);
-  T* bufs[2] = {buf0, buf1};
-  int k = 0;
-  for (int axis = 2; axis >= 0; --axis) {
-    if (radius[axis] == 0) continue;
-    maxpool_axis_kernel<T><<<grid, kThreads, 0, stream>>>(
-        src, bufs[k], axis, radius[axis], D, H, W);
-    *err = cudaGetLastError();
-    if (*err != cudaSuccess) return nullptr;
-    src = bufs[k];
-    k ^= 1;
-  }
-  *err = cudaSuccess;
-  return src;
-}
-
 }  // namespace
 }  // namespace tpuseg
 
@@ -139,13 +80,8 @@ extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
   const int radius[3] = {rz, ry, rx};
   cudaError_t err;
 
-  const float* mx = maxpool3<float>(peak, f0, f1, radius, D, H, W, s, &err);
-  if (err != cudaSuccess) return err;
-  candidate_index_kernel<<<grid, kThreads, 0, s>>>(peak, mx, cidx, peak_thr,
-                                                   D, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int* midx = maxpool3<int>(cidx, i0, i1, radius, D, H, W, s, &err);
+  const int* midx = nms_candidates(peak, peak_thr, radius, f0, f1, cidx, i0, i1,
+                                   D, H, W, s, &err);
   if (err != cudaSuccess) return err;
 
   // v0 goes where the first chase step does not write (see pingpong_dst)

@@ -1,7 +1,7 @@
-"""Instance-level evaluation: the JAX package's numpy/scipy metrics
-(``tpuseg.eval.instance_f1`` imports no JAX), shared as they are."""
+"""Instance-level evaluation: the port's own copy of the JAX package's
+numpy/scipy metrics (``eval/instance_f1.py``)."""
 
-from tpuseg.eval.instance_f1 import (center_match_f1, instance_metrics,
-                                     voxel_metrics)
+from tpuseg_torch.eval.instance_f1 import (center_match_f1, instance_metrics,
+                                           voxel_metrics)
 
 __all__ = ["center_match_f1", "instance_metrics", "voxel_metrics"]

@@ -7,6 +7,10 @@ tensor on any device:
   per block) -> sigmoid -> watershed (K1-K3 kernels on CUDA) -> size filter
   + compact 1..K relabel
 
+``InferConfig.apply_impl`` selects the sweep's forward: "flax" is the module
+forward, "fused" the eval apply of ``models/fused_eval.py`` (the three
+full-resolution ConvBlocks on the K4 kernel).
+
 PyTorch runs eagerly, so there is no ``jit``, no ``bind_variables`` and no
 staged program: those exist to shape XLA programs on a TPU.
 ``InferConfig.program`` ("fused" / "staged") is read and ignored for that
@@ -19,7 +23,7 @@ import warnings
 
 import torch
 
-from tpuseg_torch.core import Config, InferConfig
+from tpuseg_torch.core import Config
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.data.normalize import histogram_percentile_scalars
 from tpuseg_torch.infer.tiles import rf_radius_bound, tiled_forward
@@ -30,10 +34,6 @@ from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
 
 def _check_ported(cfg: Config) -> None:
     unported = [
-        # the default apply is the plain module forward; "fused" (K4) waits
-        ("infer.apply_impl", cfg.infer.apply_impl != InferConfig.apply_impl),
-        # the peak NMS kernel (K5) waits; the plain NMS is the default
-        ("postproc.nms_impl", cfg.postproc.nms_impl != "xla"),
         ("postproc.merge_saddle_ratio", cfg.postproc.merge_saddle_ratio > 0),
     ]
     for key, bad in unported:
@@ -70,9 +70,18 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
                       with_diagnostics: bool = False, plain: bool = False):
     """``(infer, stage_net, stage_post)``: ``stage_net(volume)`` gives the
     logits, ``stage_post(logits)`` the labels (and diagnostics), ``infer``
-    chains them. ``plain=True`` runs the watershed's plain twins instead of
-    the CUDA kernels (the card's end-to-end check of the kernels)."""
+    chains them. ``plain=True`` runs the plain twins of the watershed's and
+    the fused apply's kernels instead of the CUDA kernels (the card's
+    end-to-end check of the kernels)."""
     _check_ported(cfg)
+    if cfg.infer.apply_impl == "fused":
+        from tpuseg_torch.models.fused_eval import make_fused_apply
+
+        apply_fn = make_fused_apply(model, plain=plain)
+    elif cfg.infer.apply_impl == "flax":
+        apply_fn = model
+    else:
+        raise ValueError(f"unknown apply_impl {cfg.infer.apply_impl!r}")
     compute_dtype = resolve(cfg.infer.compute_dtype)
     # float32 convolutions in full float32: cuDNN would take TF32 by default
     torch.backends.cudnn.allow_tf32 = False
@@ -118,7 +127,7 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
             def preprocess(b):
                 return torch.clamp((b - p_lo) / span, 0.0, 1.0)
 
-        return tiled_forward(model, vol, tile=cfg.infer.tile, halo=halo,
+        return tiled_forward(apply_fn, vol, tile=cfg.infer.tile, halo=halo,
                              tile_batch=cfg.infer.tile_batch,
                              compute_dtype=compute_dtype,
                              preprocess=preprocess)

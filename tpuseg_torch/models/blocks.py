@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuseg_torch.ops.convblock import fold_bn_affine
+
 
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` computed in the input's dtype, bias added after the
@@ -46,8 +48,7 @@ def eval_batch_norm(x, weight, bias, running_mean, running_var,
     """``EvalBatchNorm``: ``x * s + b`` in x's dtype with
     ``s = rsqrt(var + eps) * weight`` and ``b = bias - mean * s`` folded in
     float32."""
-    s = torch.rsqrt(running_var + eps) * weight
-    b = bias - running_mean * s
+    s, b = fold_bn_affine(weight, bias, running_mean, running_var, eps)
     return x * _channel(s.to(x.dtype)) + _channel(b.to(x.dtype))
 
 
@@ -111,6 +112,16 @@ class ConvBlock(nn.Module):
     def forward(self, x):
         x = F.relu(self.norm0(self.conv0(x)))
         return F.relu(self.norm1(self.conv1(x)))
+
+
+def head_logits(conv: Conv3d, t: torch.Tensor) -> torch.Tensor:
+    """A 1x1x1 head of the fused applies: the float32-accumulated channel
+    contraction of the compute-dtype trunk ``t`` (N, C, D, H, W) with the
+    head kernel rounded to that dtype, plus a float32 bias -> (N, D, H, W)
+    float32 (``tpuseg/models/fused_eval.py:163-168``) — not the module
+    path's compute-dtype bias add."""
+    k = conv.weight.reshape(-1).to(t.dtype).float()
+    return torch.einsum("ncdhw,c->ndhw", t.float(), k) + conv.bias.float()
 
 
 class Down(nn.Module):

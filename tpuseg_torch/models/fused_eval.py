@@ -1,0 +1,97 @@
+"""Eval-mode U-Net forward with the full-resolution ConvBlocks on the fused
+ConvBlock kernel (K4; port of ``tpuseg/models/fused_eval.py``).
+
+``make_fused_apply(model)`` returns ``apply_fn(x) -> out`` with the eval
+contract of ``model(x)`` — float32 fg/peak logits (N, D, H, W) — that the
+tile sweep (``infer/tiles.py``) uses in the model's place:
+
+* enc0, up0.block and head_trunk (the three 32-channel full-resolution
+  ConvBlocks) run as ``ops.convblock.fused_convblock``, their BatchNorm
+  running statistics folded to float32 affines;
+* the mid net (down0 .. up0.up_conv) runs the model's own modules in eval
+  mode;
+* the 1x1x1 heads are ``models.blocks.head_logits``: a float32-accumulated
+  channel contraction of the compute-dtype trunk plus a float32 bias.
+
+The function is ``model(x)`` up to reassociation and the affine's dtype (the
+kernel applies the float32 affine to its float32 accumulator, the module
+path rounds the conv first and applies a compute-dtype affine). A batch of
+N blocks is one launch per ConvBlock (the kernel's grid has the batch).
+
+The conv kernels are re-laid and the affines folded once, when the apply is
+built: build it after the checkpoint is loaded and the model is on its
+device. No gradient path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpuseg_torch.core import ModelConfig
+from tpuseg_torch.models.blocks import ConvBlock, head_logits
+from tpuseg_torch.models.unet3d import UNet3D
+from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
+                                        fused_convblock_plain, pack_weights)
+
+
+def fused_apply_supported(config: ModelConfig) -> bool:
+    """The fused block is specialized to the flagship family: 32-channel
+    full-resolution blocks, eval BatchNorm, ReLU."""
+    return (
+        config.norm == "batch"
+        and config.activation == "relu"
+        and len(config.features) >= 2
+        and config.features[0] == 32
+        and config.head_features == 32
+    )
+
+
+def _block_args(block: ConvBlock, compute_dtype: str):
+    """ConvBlock -> ``fused_convblock``'s (w1, s1, b1, w2, s2, b2)."""
+    out = []
+    for conv, norm in ((block.conv0, block.norm0), (block.conv1, block.norm1)):
+        s, b = fold_bn_affine(norm.weight.detach(), norm.bias.detach(),
+                              norm.running_mean, norm.running_var, norm.eps)
+        out += [pack_weights(conv.weight, compute_dtype), s, b]
+    return out
+
+
+def make_fused_apply(model: UNet3D, plain: bool = False):
+    """Build ``apply_fn(x) -> {"fg_logits", "peak_logits"}`` for a U-Net in
+    eval mode; raises ValueError for a config the fused block does not cover
+    (:func:`fused_apply_supported`). ``plain=True`` runs the block's plain
+    twin on whatever device ``x`` is on: the card's check of the kernel."""
+    cfg = model.config
+    if not fused_apply_supported(cfg):
+        raise ValueError(
+            "fused eval apply requires norm='batch', activation='relu', "
+            f"features[0]==head_features==32; got {cfg}")
+    dtype = model.dtype
+    levels = len(cfg.features)
+    block_fn = fused_convblock_plain if plain else fused_convblock
+    enc0, up0, trunk = (_block_args(b, cfg.compute_dtype) for b in
+                        (model.enc0, model.up0.block, model.head_trunk))
+
+    @torch.no_grad()
+    def apply_fn(x):  # (N, 1, d, h, w) or (N, d, h, w)
+        if model.training:
+            raise RuntimeError("fused eval apply needs model.eval(): it "
+                               "folds the running statistics")
+        if x.dim() == 4:
+            x = x[:, None]
+        skip0 = block_fn(x.to(dtype), *enc0, cfg.compute_dtype)
+        h = skip0
+        skips = []
+        for i in range(1, levels - 1):
+            h = getattr(model, f"enc{i}")(getattr(model, f"down{i - 1}")(h))
+            skips.append(h)
+        h = model.bottleneck(getattr(model, f"down{levels - 2}")(h))
+        for i in reversed(range(1, levels - 1)):
+            h = getattr(model, f"up{i}")(h, skips[i - 1])
+        t = torch.cat([model.up0.up(h), skip0], dim=1)
+        t = block_fn(t, *up0, cfg.compute_dtype)
+        t = block_fn(t, *trunk, cfg.compute_dtype)
+        return {"fg_logits": head_logits(model.fg_head, t),
+                "peak_logits": head_logits(model.peak_head, t)}
+
+    return apply_fn

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpuseg_torch.models.blocks import ConvBlock
+from tpuseg_torch.models.blocks import ConvBlock, head_logits
 from tpuseg_torch.models.unet3d import UNet3D
 from tpuseg_torch.ops.convtrain import conv3x3
 
@@ -45,10 +45,6 @@ def make_fused_train_apply(model: UNet3D):
         y = conv3x3(y, block.conv1.weight, cfg.compute_dtype)
         return F.relu(block.norm1(y))
 
-    def head(conv, t):
-        k = conv.weight.reshape(-1).to(dtype).float()
-        return torch.einsum("ncdhw,c->ndhw", t.float(), k) + conv.bias.float()
-
     def apply_fn(x):
         if x.dim() == 4:
             x = x[:, None]
@@ -67,7 +63,7 @@ def make_fused_train_apply(model: UNet3D):
         t = torch.cat([model.up0.up(h), skip0], dim=1)
         t = fused_block(model.up0.block, t)
         t = fused_block(model.head_trunk, t)
-        return {"fg_logits": head(model.fg_head, t),
-                "peak_logits": head(model.peak_head, t)}
+        return {"fg_logits": head_logits(model.fg_head, t),
+                "peak_logits": head_logits(model.peak_head, t)}
 
     return apply_fn

@@ -1,9 +1,13 @@
-"""Ops of the port: peak NMS, watershed (with the K1-K3 CUDA kernels), size
-filter (see ``ops/watershed.py``), and the training path's 3x3x3 conv (the
-K6 kernel, ``ops/convtrain.py``)."""
+"""Ops of the port: peak NMS (with the K5 CUDA kernel, ``ops/nms.py``),
+watershed (with the K1-K3 kernels; see ``ops/watershed.py``), size filter,
+the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
+3x3x3 conv (K6, ``ops/convtrain.py``)."""
 
+from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
+                                        fused_convblock_plain)
 from tpuseg_torch.ops.convtrain import conv3x3, conv3x3_plain, conv3x3_raw
 from tpuseg_torch.ops.filter import size_filter_and_compact
+from tpuseg_torch.ops.nms import fused_peak_nms
 from tpuseg_torch.ops.peaks import peak_nms, radius3
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve, flood_pass,
                                       flood_resolve)
@@ -13,12 +17,14 @@ from tpuseg_torch.ops.watershed import (flood_truncation_count,
 
 #: the wrappers that launch the hand-written kernels, each with a
 #: ``.launches`` counter
-KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw)
+KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
+                   fused_convblock, fused_peak_nms)
 
 __all__ = [
     "KERNEL_WRAPPERS", "chase_pass", "chase_resolve", "conv3x3",
-    "conv3x3_plain", "conv3x3_raw", "flood_pass",
-    "flood_resolve", "flood_truncation_count", "peak_nms", "radius3",
+    "conv3x3_plain", "conv3x3_raw", "flood_pass", "flood_resolve",
+    "flood_truncation_count", "fold_bn_affine", "fused_convblock",
+    "fused_convblock_plain", "fused_peak_nms", "peak_nms", "radius3",
     "seed_chase_pass", "size_filter_and_compact", "steepest_dir_codes",
     "watershed",
 ]
