@@ -23,13 +23,19 @@ Phases, in order; any failure raises and exits non-zero:
    ground truth;
 6. K6 forward and dx against ``F.conv3d`` at the training shapes
    (8, ci, 64^3), ci in {1, 32, 64}, and at (3, ci, 13, 27, 45), in f32
-   (TF32 off) and bf16; kernel and twin times (bf16) at the full shapes;
+   (TF32 off) and bf16, and in bf16 at two edge shapes of the tensor-core
+   body (one plane narrower than a tile; every extent one more than a
+   multiple of the tile); the wrapper's counters must show the tensor-core
+   body for bf16 with ci >= 32 and the CUDA-core body otherwise; kernel and
+   library times (bf16) at the full shapes, with TFLOP/s and their ratio;
 7. the training main path through its entry point:
    ``tpuseg_torch.cli.train.main`` on the full default U-Net, batch 8 of
    64^3, ``train.apply_impl="fused"``, two synthetic volumes (one held out
-   for validation with val-volume inference); K6 and K1-K3 launch counters
-   above 0, finite losses, the checkpoint written, and a ``--resume`` run
-   that continues from it;
+   for validation with val-volume inference); K6 (its tensor-core body
+   too) and K1-K3 launch counters above 0, finite losses, the checkpoint
+   written, and a ``--resume`` run that continues from it; then one warm
+   train step under the fused and the plain apply, in turns: wall time and
+   device time by kernel (``torch.profiler``);
 8. the fused and the plain-module train step on one fixed batch: loss and
    every parameter gradient (f32 and bf16 bounds in the phase);
 9. bench.py's 200-step trained-weights recipe through
@@ -39,17 +45,19 @@ Phases, in order; any failure raises and exits non-zero:
    ``infer.apply_impl="fused"``: the loss must halve and both calibrated
    F1@IoU0.5 reach 0.5;
 10. K4 against its twin at the fused sweep's three block shapes
-    (1, ci, 64, 160, 160), ci in {1, 64, 32}, and at (2, ci, 5, 27, 45), in
-    f32 (TF32 off) and bf16, with non-zero seeded affines; times (bf16) of
-    the kernel, the twin and the library call (the module ``ConvBlock`` in
-    eval mode: cuDNN convs + BatchNorm + ReLU);
+    (1, ci, 64, 160, 160), ci in {1, 64, 32}, at (2, ci, 5, 27, 45), at one
+    plane and at 37 planes of 13 x 70 (more than one z chunk), in f32 (TF32
+    off) and bf16, with non-zero seeded affines; bf16 must launch the
+    tensor-core kernel and f32 the CUDA-core one; times (bf16) of the
+    kernel, the twin and the library call (the module ``ConvBlock`` in eval
+    mode: cuDNN convs + BatchNorm + ReLU), with TFLOP/s and their ratio;
 11. K5 against its twin, elementwise, at 96x512x512 (radius 2) and at
     45x203x301 (radius (1, 2, 2), once more on a quantized map full of
     plateaus, and with radius 0 on z); times of the kernel, the twin and a
     ``F.max_pool3d`` NMS without the index tie-break (timing only);
 12. the fused main path: ``cli.infer`` with ``infer.apply_impl="fused"`` on
     the stack and checkpoint of phase 4: K4 launched 3 x 48 = 144 times,
-    K1-K3 above 0; warm stage times beside the plain sweep's, and each
+    all by the tensor-core kernel, K1-K3 above 0; warm stage times beside the plain sweep's, and each
     call's device time by kernel (``torch.profiler``); the fused logits
     against the same apply through K4's twin; then
     ``postproc.nms_impl="pallas"`` (K5 launched, labels elementwise equal
@@ -82,8 +90,14 @@ MAIN_SHAPE = (96, 512, 512)
 RAGGED_SHAPE = (45, 203, 301)
 TRAIN_SHAPE = (8, 64, 64, 64)           # batch 8 of 64^3 patches
 RAGGED_CONV_SHAPE = (3, 13, 27, 45)
+# edges of K6's tensor-core body: D = 1 with W < 8, and D, H, W each one more
+# than a multiple of its tile (z chunk 16, 8 rows, 16 or 32 columns)
+EDGE_CONV_SHAPES = ((1, 1, 3, 5), (2, 17, 9, 33))
 BLOCK_SHAPE = (1, 64, 160, 160)         # one tile block of the default sweep
 RAGGED_BLOCK_SHAPE = (2, 5, 27, 45)
+# edges of K4: one plane; more than one z chunk (16 planes), not a multiple,
+# with ragged rows and columns
+EDGE_BLOCK_SHAPES = ((1, 1, 9, 20), (1, 37, 13, 70))
 BLOCK_CI = (1, 64, 32)                  # enc0, up0.block, head_trunk
 N_TILES = 48                            # blocks per 96x512x512 stack
 NUM_INSTANCES = 600
@@ -300,47 +314,63 @@ def check_conv(name, got, want, dtype) -> float:
 
 def phase_conv():
     """K6 forward and dx against the twin (F.conv3d), f32 and bf16, at the
-    train path's full-width shapes and a ragged one; kernel and twin times
-    (bf16, CUDA events) at the full-width shapes."""
-    from tpuseg_torch.ops.convtrain import conv3x3_raw, conv3x3_raw_plain, flip_w
+    train path's full-width shapes and a ragged one, and in bf16 at two edge
+    shapes of the tensor-core body; which body ran (the wrapper's counters);
+    kernel and twin times (bf16, CUDA events) at the full-width shapes."""
+    from tpuseg_torch.ops.convtrain import (conv3x3_raw, conv3x3_raw_plain,
+                                            conv_body, flip_w)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst, times = 0.0, {}
-    for shape in (TRAIN_SHAPE, RAGGED_CONV_SHAPE):
+    for shape in (TRAIN_SHAPE, RAGGED_CONV_SHAPE) + EDGE_CONV_SHAPES:
         n, sp = shape[0], shape[1:]
-        for ci in (1, 32, 64):
+        edge = shape in EDGE_CONV_SHAPES
+        for ci in ((32, 64) if edge else (1, 32, 64)):
             w32 = torch.randn((32, ci, 3, 3, 3), device="cuda", generator=g) \
                 / (27 * ci) ** 0.5
             x32 = torch.randn((n, ci, *sp), device="cuda", generator=g)
             dy32 = torch.randn((n, 32, *sp), device="cuda", generator=g)
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in ((torch.bfloat16,) if edge
+                          else (torch.float32, torch.bfloat16)):
                 x, w, dy = x32.to(dtype), w32.to(dtype), dy32.to(dtype)
                 wf = flip_w(w).contiguous()
                 for what, (a, b) in {"fwd": (x, w), "dx": (dy, wf)}.items():
                     tag = f"conv3x3 {what} ci={ci} {tuple(shape)} {dtype}"
+                    body = conv_body(dtype, b.shape[1], b.shape[0])
+                    before = conv3x3_raw.mma_launches
                     got = conv3x3_raw(a, b)
                     want = conv3x3_raw_plain(a, b)
                     torch.cuda.synchronize()
+                    ran_mma = conv3x3_raw.mma_launches - before
+                    if ran_mma != int(dtype == torch.bfloat16 and ci >= 32):
+                        raise AssertionError(
+                            f"{tag}: tensor-core body launched {ran_mma} "
+                            f"times (rule says {body})")
                     worst = max(worst, check_conv(tag, got, want, dtype))
                     if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
                         times[(what, ci)] = (
                             cuda_ms(lambda: conv3x3_raw(a, b), 5),
-                            cuda_ms(lambda: conv3x3_raw_plain(a, b), 5))
+                            cuda_ms(lambda: conv3x3_raw_plain(a, b), 5), body)
             del x32, dy32
-    for (what, ci), (ms, plain_ms) in times.items():
-        print(f"[6] conv3x3 {what} ci={ci} {TRAIN_SHAPE} bf16: kernel "
-              f"{ms:.3f} ms, twin {plain_ms:.3f} ms")
+    vox = int(np.prod(TRAIN_SHAPE))
+    for (what, ci), (ms, plain_ms, body) in times.items():
+        flop = 2 * 27 * 32 * ci * vox
+        print(f"[6] conv3x3 {what} {ci if what == 'fwd' else 32}->"
+              f"{32 if what == 'fwd' else ci} {TRAIN_SHAPE} bf16, body {body}:"
+              f" kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), "
+              f"F.conv3d {plain_ms:.3f} ms, ratio {ms / plain_ms:.2f}")
     print(f"[6] conv3x3 == twin (fwd and dx, f32 and bf16) at {TRAIN_SHAPE} "
-          f"and {RAGGED_CONV_SHAPE}, ci in (1, 32, 64); max abs err {worst:.3g}")
+          f"and {RAGGED_CONV_SHAPE}, ci in (1, 32, 64), and in bf16 at "
+          f"{EDGE_CONV_SHAPES}; the tensor-core body ran for bf16 with ci >= "
+          f"32 and never for f32 or ci = 1; max abs err {worst:.3g}")
     # the record: fwd ci=32 in bf16. 2*27*32*32 FLOP per voxel on the tensor
     # cores' rate; x and y in bf16 plus the weights. The twin is the library
     # call (F.conv3d).
-    ms, plain_ms = times[("fwd", 32)]
-    vox = int(np.prod(TRAIN_SHAPE))
+    ms, plain_ms, body = times[("fwd", 32)]
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": plain_ms,
+            "library_ms": plain_ms, "body": body,
             **bound(2 * 32 * vox * 2 + 27 * 32 * 32 * 2,
                     2 * 27 * 32 * 32 * vox, BF16_FLOPS)}
 
@@ -355,12 +385,22 @@ def _reset_launches():
 
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "mma_launches"):
+            fn.mma_launches = 0
 
 
 def _launches():
     from tpuseg_torch.ops import KERNEL_WRAPPERS
 
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def _mma_launches():
+    """Launches of the tensor-core bodies (K4, K6) since the last reset."""
+    from tpuseg_torch.ops import KERNEL_WRAPPERS
+
+    return {fn.__name__: fn.mma_launches for fn in KERNEL_WRAPPERS
+            if hasattr(fn, "mma_launches")}
 
 
 def phase_main_path(image: np.ndarray, tmp: str):
@@ -482,6 +522,7 @@ def phase_train_main_path(tmp: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
+    launches_mma = _mma_launches()["conv3x3_raw"]
     missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"train main path never launched {missing}")
@@ -503,7 +544,8 @@ def phase_train_main_path(tmp: str):
           f"apply; wall {wall:.1f} s incl. set-up and 2 validations; "
           f"losses {[round(x, 4) for x in losses]}; val "
           f"{[(r['step'], round(r['val_loss'], 4), round(r['val_center_f1'], 4)) for r in val_recs]}; "
-          f"kernel launches {launches}")
+          f"kernel launches {launches}, {launches_mma} of K6's by the "
+          f"tensor-core body")
     print(f"[7] steady train step: {steady:.3f} Mvox/s = "
           f"{1e3 * vox / 1e6 / steady:.1f} ms/step; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -518,7 +560,52 @@ def phase_train_main_path(tmp: str):
                              f"{TRAIN_STEPS}: {resumed}")
     print(f"[7] --resume continued {TRAIN_STEPS} -> {RESUME_STEPS} "
           f"(loss {resumed[-1]['loss']:.4f})")
+    if launches_mma == 0:
+        raise AssertionError("train main path never launched K6's "
+                             "tensor-core body")
+    phase_train_step_times()
     return launches
+
+
+def phase_train_step_times():
+    """One warm train step (full default U-Net, batch 8 of 64^3, bf16) under
+    the fused and the plain-module apply, in turns on one fixed batch: wall
+    ms ending in a synchronize, then each step's device time by kernel."""
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.data import PatchSampler, synthesize_volume
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.train.step import create_train_state, make_train_step
+
+    vol = synthesize_volume(shape=(64, 128, 128), num_instances=16, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in PatchSampler(
+        [vol], batch_size=TRAIN_SHAPE[0]).next_batch().items()}
+    steps = {}
+    for tag, impl in (("fused", "fused"), ("plain", "flax")):
+        cfg = Config().override(**{"train.apply_impl": impl})
+        model = build_model(cfg.model, seed=SEED).cuda().train()
+        state = create_train_state(model, cfg)
+        step_fn = make_train_step(model, cfg)
+        steps[tag] = lambda state=state, step_fn=step_fn: step_fn(
+            state, batch, SEED + 1)
+        for _ in range(2):
+            steps[tag]()
+    times = {"fused": [], "plain": []}
+    # the first turn of each is a warm-up of the alternation itself (the
+    # allocator's cache is shared by the two models) and is not kept
+    for turn, tag in enumerate(("plain", "fused", "plain", "fused", "fused",
+                                "plain")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            steps[tag]()
+        torch.cuda.synchronize()
+        if turn >= 2:
+            times[tag].append(1e3 * (time.perf_counter() - t0) / 5)
+    print(f"[7] warm train step, mean of 5, two turns each: fused apply "
+          f"{' / '.join(f'{t:.1f}' for t in times['fused'])} ms, plain "
+          f"apply {' / '.join(f'{t:.1f}' for t in times['plain'])} ms")
+    for tag in ("fused", "plain"):
+        profile_device_time(f"one warm {tag} train step", steps[tag], phase=7)
 
 
 def phase_fused_vs_plain():
@@ -683,13 +770,16 @@ def check_block(name, got, want, dtype) -> float:
 
 def phase_convblock():
     """K4 against its twin, f32 and bf16, at the fused sweep's three block
-    shapes and a ragged one, with non-zero affines (a non-zero b1 shows a
-    T that is not zero outside the volume); times in bf16 at the block
-    shapes: the kernel (weights packed once, as the main path calls it), the
-    twin, and the library call — the module ConvBlock in eval mode."""
+    shapes, a ragged one and two edge shapes (one plane; more than one z
+    chunk with ragged rows and columns), with non-zero affines (a non-zero
+    b1 shows a T that is not zero outside the volume); which kernel ran (the
+    wrapper's counters); times in bf16 at the block shapes: the kernel
+    (weights re-laid once, as the main path calls it), the twin, and the
+    library call — the module ConvBlock in eval mode."""
     from tpuseg_torch.models.blocks import ConvBlock
-    from tpuseg_torch.ops.convblock import (fused_convblock,
-                                            fused_convblock_plain, pack_weights)
+    from tpuseg_torch.ops.convblock import (block_bodies, fused_convblock,
+                                            fused_convblock_plain,
+                                            kernel_weights)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -699,7 +789,7 @@ def phase_convblock():
         return torch.randn(shape, device="cuda", generator=g)
 
     worst, times = 0.0, {}
-    for shape in (BLOCK_SHAPE, RAGGED_BLOCK_SHAPE):
+    for shape in (BLOCK_SHAPE, RAGGED_BLOCK_SHAPE) + EDGE_BLOCK_SHAPES:
         n, sp = shape[0], shape[1:]
         for ci in BLOCK_CI:
             w1 = randn(32, ci, 3, 3, 3) / (27 * ci) ** 0.5
@@ -711,16 +801,24 @@ def phase_convblock():
             for name in ("float32", "bfloat16"):
                 dtype = getattr(torch, name)
                 x = x32.to(dtype)
+                before = fused_convblock.mma_launches
                 got = fused_convblock(x, w1, s1, b1, w2, s2, b2, name)
                 want = fused_convblock_plain(x, w1, s1, b1, w2, s2, b2, name)
                 torch.cuda.synchronize()
+                ran_mma = fused_convblock.mma_launches - before
+                if ran_mma != int(dtype == torch.bfloat16):
+                    raise AssertionError(
+                        f"fused_convblock ci={ci} {name}: tensor-core kernel "
+                        f"launched {ran_mma} times")
                 worst = max(worst, check_block(
                     f"fused_convblock ci={ci} {tuple(shape)} {name}", got,
                     want, dtype))
                 del got, want
                 if shape != BLOCK_SHAPE or dtype != torch.bfloat16:
                     continue
-                w1k, w2k = pack_weights(w1, name), pack_weights(w2, name)
+                bodies = block_bodies(dtype, ci)
+                w1k = kernel_weights(w1, name, bodies[0])
+                w2k = kernel_weights(w2, name, bodies[1])
                 block = ConvBlock(ci, 32).cuda().eval()
                 with torch.no_grad():
                     block.conv0.weight.copy_(w1)
@@ -735,26 +833,32 @@ def phase_convblock():
                             x, w1k, s1, b1, w2k, s2, b2, name), 3),
                         cuda_ms(lambda: fused_convblock_plain(
                             x, w1, s1, b1, w2, s2, b2, name), 3),
-                        cuda_ms(lambda: block(x), 5))
+                        cuda_ms(lambda: block(x), 5), bodies)
             del x32
     vox = int(np.prod(BLOCK_SHAPE))
     records = {}
-    for ci, (ms, plain_ms, lib_ms) in times.items():
+    for ci, (ms, plain_ms, lib_ms, bodies) in times.items():
         # 2*27*32*(ci + 32) FLOP per voxel on the tensor cores' rate; x and
         # the output in bf16, the weights and affines in f32
         records[ci] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "body": f"conv1 {bodies[0]}, conv2 {bodies[1]}",
             **bound((ci + 32) * vox * 2 + 27 * 32 * (ci + 32) * 4 + 4 * 32 * 4,
                     2 * 27 * 32 * (ci + 32) * vox, BF16_FLOPS)}
-        fma = 27 * 32 * (ci + 32) * vox
-        print(f"[10] fused_convblock ci={ci} {BLOCK_SHAPE} bf16: kernel "
-              f"{ms:.3f} ms ({fma / ms / 1e9:.2f} T FMA/s), twin "
-              f"{plain_ms:.3f} ms, library ConvBlock {lib_ms:.3f} ms, bound "
-              f"{records[ci]['bound_ms']:.3f} ms by {records[ci]['bound_by']}")
-    print(f"[10] fused_convblock == twin (f32 and bf16) at {BLOCK_SHAPE} and "
-          f"{RAGGED_BLOCK_SHAPE}, ci in {BLOCK_CI}; max abs err {worst:.3g}; "
-          f"one tile's three blocks {sum(t[0] for t in times.values()):.3f} ms "
-          f"against the library's {sum(t[2] for t in times.values()):.3f} ms")
+        flop = 2 * 27 * 32 * (ci + 32) * vox
+        print(f"[10] fused_convblock ci={ci} {BLOCK_SHAPE} bf16, conv1 "
+              f"{bodies[0]}, conv2 {bodies[1]}: kernel {ms:.3f} ms "
+              f"({flop / ms / 1e9:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
+              f"library ConvBlock {lib_ms:.3f} ms (ratio {ms / lib_ms:.2f}), "
+              f"bound {records[ci]['bound_ms']:.3f} ms by "
+              f"{records[ci]['bound_by']}")
+    tile_ms = sum(t[0] for t in times.values())
+    tile_lib = sum(t[2] for t in times.values())
+    print(f"[10] fused_convblock == twin (f32 and bf16) at {BLOCK_SHAPE}, "
+          f"{RAGGED_BLOCK_SHAPE} and {EDGE_BLOCK_SHAPES}, ci in {BLOCK_CI}; "
+          f"bf16 ran the tensor-core kernel, f32 never; max abs err "
+          f"{worst:.3g}; one tile's three blocks {tile_ms:.3f} ms against the "
+          f"library's {tile_lib:.3f} ms (ratio {tile_ms / tile_lib:.2f})")
     # the record: the up0.block shape (ci = 64), the largest of the three
     return {"max_abs_err": worst, "shape": [1, 64, *BLOCK_SHAPE[1:]],
             **records[64]}
@@ -831,7 +935,7 @@ def _run_cli_infer(tmp, ckpt, vol_path, tag, *sets):
     return np.load(out_path), launches, status
 
 
-def profile_device_time(label: str, fn, top: int = 8) -> None:
+def profile_device_time(label: str, fn, top: int = 8, phase: int = 12) -> None:
     """Print where the device time of one warm ``fn()`` goes: the kernels by
     name, from ``torch.profiler`` (informational; a profiler that sees no
     device time prints "not measured")."""
@@ -849,11 +953,11 @@ def profile_device_time(label: str, fn, top: int = 8) -> None:
             kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
     total = sum(kernels.values())
     if total == 0:
-        print(f"[12] profile of {label}: device time not measured")
+        print(f"[{phase}] profile of {label}: device time not measured")
         return
     # the host's wall time under the profiler is the profiler's own: the
     # busy share is this sum over the warm wall time printed above
-    print(f"[12] profile of {label}: device kernels {total:.1f} ms in all; "
+    print(f"[{phase}] profile of {label}: device kernels {total:.1f} ms in all; "
           f"top {top} by device time:")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"       {ms:9.2f} ms {100 * ms / total:5.1f}%  {key[:90]}")
@@ -879,13 +983,14 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
     labels, launches, status = _run_cli_infer(
         tmp, ckpt, vol_path, "fused", 'infer.apply_impl="fused"')
     k4_launches = launches["fused_convblock"]
+    k4_mma = _mma_launches()["fused_convblock"]
     ids = np.unique(labels)
     print(f"[12] cli.infer, fused apply: status {status}, {ids.size - 1} "
           f"instances (plain apply: {int(default_labels.max())}); kernel "
-          f"launches {launches}")
-    if launches["fused_convblock"] != 3 * N_TILES:
-        raise AssertionError(f"fused main path launched K4 "
-                             f"{launches['fused_convblock']} times, not "
+          f"launches {launches}, {k4_mma} of K4's by the tensor-core kernel")
+    if k4_launches != 3 * N_TILES or k4_mma != k4_launches:
+        raise AssertionError(f"fused main path launched K4 {k4_launches} "
+                             f"times ({k4_mma} on the tensor cores), not "
                              f"{3 * N_TILES}")
     missing = [k for k in INFER_KERNELS if launches[k] == 0]
     if missing:

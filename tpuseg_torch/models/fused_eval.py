@@ -28,10 +28,12 @@ from __future__ import annotations
 import torch
 
 from tpuseg_torch.core import ModelConfig
+from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.models.blocks import ConvBlock, head_logits
 from tpuseg_torch.models.unet3d import UNet3D
-from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
-                                        fused_convblock_plain, pack_weights)
+from tpuseg_torch.ops.convblock import (block_bodies, fold_bn_affine,
+                                        fused_convblock,
+                                        fused_convblock_plain, kernel_weights)
 
 
 def fused_apply_supported(config: ModelConfig) -> bool:
@@ -47,12 +49,15 @@ def fused_apply_supported(config: ModelConfig) -> bool:
 
 
 def _block_args(block: ConvBlock, compute_dtype: str):
-    """ConvBlock -> ``fused_convblock``'s (w1, s1, b1, w2, s2, b2)."""
+    """ConvBlock -> ``fused_convblock``'s (w1, s1, b1, w2, s2, b2), each
+    conv kernel re-laid for the body that runs it."""
+    bodies = block_bodies(resolve(compute_dtype), block.conv0.weight.shape[1])
     out = []
-    for conv, norm in ((block.conv0, block.norm0), (block.conv1, block.norm1)):
+    for conv, norm, body in ((block.conv0, block.norm0, bodies[0]),
+                             (block.conv1, block.norm1, bodies[1])):
         s, b = fold_bn_affine(norm.weight.detach(), norm.bias.detach(),
                               norm.running_mean, norm.running_var, norm.eps)
-        out += [pack_weights(conv.weight, compute_dtype), s, b]
+        out += [kernel_weights(conv.weight, compute_dtype, body), s, b]
     return out
 
 

@@ -1,7 +1,8 @@
 """Ops of the port: peak NMS (with the K5 CUDA kernel, ``ops/nms.py``),
 watershed (with the K1-K3 kernels; see ``ops/watershed.py``), size filter,
 the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
-3x3x3 conv (K6, ``ops/convtrain.py``)."""
+3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies share the weight
+layout of ``ops/conv_mma.py``."""
 
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
                                         fused_convblock_plain)

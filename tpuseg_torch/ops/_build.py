@@ -37,8 +37,11 @@ SIGNATURES = {
     "tpuseg_chase_pass": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuseg_flood_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuseg_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tpuseg_conv3x3_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_convblock": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _P],
+                         _P],
+    "tpuseg_convblock_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P],
     "tpuseg_peak_nms": [_P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                         _P, _P],
 }

@@ -4,10 +4,17 @@
 * ``conv3x3_raw(x, w)`` — the kernel wrapper: a bias-free 3x3x3 SAME conv
   of NCDHW ``x`` with torch-layout weights ``w`` (co, ci, 3, 3, 3), both in
   the compute dtype (bf16 or f32), f32 accumulation, one rounding to that
-  dtype. A CUDA tensor launches the hand-written kernel of
-  ``csrc/convtrain.cu`` (any shape: edges are masked in the kernel) or
-  raises; a CPU tensor takes :func:`conv3x3_raw_plain`. ``.launches``
-  counts kernel launches.
+  dtype. A CUDA tensor launches a hand-written kernel of
+  ``csrc/convtrain.cu`` (any N, D, H, W: edges are masked in the kernel) or
+  raises; a CPU tensor takes :func:`conv3x3_raw_plain`. Which of the two
+  kernel bodies runs is a fixed function of (dtype, ci, co),
+  :func:`conv_body`: ``"mma"``, the bf16 implicit GEMM on the tensor cores
+  (``wgmma``), for bfloat16 with ci 16, 32 or 64 and co 32 or 64 (not both
+  64) — the forward and dx of every 32- and 64-channel conv of a train
+  step; ``"fma"``, the CUDA cores' float32 FMA kernel, for float32 (whose
+  contract is exact float32 products) and for the other channel counts
+  (ci = 1). ``.launches`` counts kernel launches of both bodies,
+  ``.mma_launches`` those of the tensor-core body.
 * ``conv3x3(x, w, compute_dtype)`` — differentiable, the counterpart of the
   ``conv3x3_p2`` custom_vjp: the forward and dx run ``conv3x3_raw`` (dx on
   the cotangent, rounded to the compute dtype, with :func:`flip_w` weights),
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.ops import _build
+from tpuseg_torch.ops.conv_mma import mma_supported, pack_mma_weights
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -41,6 +49,13 @@ def flip_w(w: torch.Tensor) -> torch.Tensor:
 def conv3x3_raw_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Twin of :func:`conv3x3_raw` in plain PyTorch, on any device."""
     return F.conv3d(x, w, padding=1)
+
+
+def conv_body(dtype: torch.dtype, ci: int, co: int) -> str:
+    """The kernel body :func:`conv3x3_raw` launches for a (ci -> co) conv in
+    ``dtype``: ``"mma"`` (tensor cores) or ``"fma"`` (CUDA cores)."""
+    return ("mma" if dtype == torch.bfloat16 and mma_supported(ci, co)
+            else "fma")
 
 
 def conv3x3_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -61,18 +76,28 @@ def conv3x3_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if d > 65535 or n * -(-co // 32) > 65535:
         raise ValueError(f"conv3x3 kernel grid limit: D={d}, N={n}, co={co}")
     x = x.contiguous()
-    # (co, ci, kd, kh, kw) -> (ci, 27, co) float32: the kernel's weight tile
-    wk = w.float().permute(1, 2, 3, 4, 0).reshape(ci, 27, co).contiguous()
+    # (co, ci, kd, kh, kw) -> (ci, 27, co): the kernels' weight tile
+    wk = w.permute(1, 2, 3, 4, 0).reshape(ci, 27, co)
     y = torch.empty((n, co, d, h, wd), dtype=x.dtype, device=x.device)
-    err = _build.load().tpuseg_conv3x3(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, ci, co, d, h, wd,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr())
-    _build.check(err, "conv3x3_raw")
+    if conv_body(x.dtype, ci, co) == "mma":
+        wp = pack_mma_weights(wk)
+        err = _build.load().tpuseg_conv3x3_mma(
+            x.data_ptr(), wp.data_ptr(), y.data_ptr(), n, ci, co, d, h, wd,
+            _build.stream_ptr())
+        _build.check(err, "conv3x3_raw (mma)")
+        conv3x3_raw.mma_launches += 1
+    else:
+        wk = wk.float().contiguous()
+        err = _build.load().tpuseg_conv3x3(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, ci, co, d, h, wd,
+            int(x.dtype == torch.bfloat16), _build.stream_ptr())
+        _build.check(err, "conv3x3_raw")
     conv3x3_raw.launches += 1
     return y
 
 
 conv3x3_raw.launches = 0
+conv3x3_raw.mma_launches = 0
 
 
 class _Conv3x3(torch.autograd.Function):
