@@ -10,14 +10,22 @@ Phases, in order; any failure raises and exits non-zero:
    and print nvcc's per-kernel register report;
 3. each kernel against its plain PyTorch twin on the card, elementwise, at
    the main-path shape 96x512x512 (analytic maps of a 600-instance
-   synthetic stack) and at a ragged shape; kernel and twin times (CUDA
-   events, after a warm-up) at 96x512x512;
+   synthetic stack) and at a ragged shape; at both shapes also single
+   ``chase_pass`` / ``flood_pass`` calls of 1, 3, 8 and 11 steps on random
+   int32 payloads, random codes 0..6 (many point out of the volume) and
+   random labels of either sign over a four-level potential (plateaus), a
+   chase capped at 2 passes and floods capped at 13 and 96 steps; kernel and
+   twin times (CUDA events, after a warm-up) at 96x512x512, per pass of 8
+   steps and per resolve, beside the figures of the earlier
+   one-launch-per-step design;
 4. the main path through its entry point: ``tpuseg_torch.cli.infer.main`` on
    a 96x512x512 volume with seeded weights of the full default U-Net
    (32/64/128/256, head 32, bf16) under the default InferConfig; every
    kernel's launch counter must be above 0 after the run; then, warm, the
    stage times, and its post-processing through the twins on the same
-   logits: labels equal elementwise;
+   logits: labels equal elementwise; then K1-K3 against their twins on
+   those seeded-weights probabilities (the main path's load: tens of chase
+   passes, ten flood passes), with times per resolve;
 5. the analytic-net pipeline on the same stack, once through the kernels and
    once through the twins: labels equal elementwise; F1@IoU0.5 against the
    ground truth;
@@ -62,7 +70,10 @@ Phases, in order; any failure raises and exits non-zero:
     against the same apply through K4's twin; then
     ``postproc.nms_impl="pallas"`` (K5 launched, labels elementwise equal
     to phase 4's) and ``postproc.method="flood"`` against its plain run,
-    and the warm post-processing time of each composition.
+    and the warm post-processing time of each composition; last, the
+    kernel launches K1 and one pass of 8 steps of K2 and K3 make
+    (``torch.profiler``: one walk launch for K1 and for a chase pass, at
+    most two for a flood pass).
 
 ``--phases 10,11`` runs phases 1-2 and only the named ones (to try a kernel
 alone; no final record). Without arguments every phase runs; the
@@ -124,6 +135,21 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 INFER_KERNELS = ("seed_chase_pass", "chase_pass", "flood_pass")
+PASS_ITERS = (1, 3, 8, 11)              # single passes held against the twins
+# The one-launch-per-step design these kernels had before (PERF.md; NVIDIA
+# H100 80GB HBM3, 700.00 W, 96x512x512), printed beside the new times.
+EARLIER = {
+    "seed_chase_pass": "2.131 ms, of which its 8 chase steps ~1.25",
+    "chase_pass": "~0.156 ms a step, ~1.25 ms a pass of 8; resolve 1.328 ms "
+                  "on the analytic maps (1 pass), ~28.7 ms on seeded weights "
+                  "(23 passes)",
+    "flood_pass": "~0.27 ms a step, ~2.2 ms a pass of 8; resolve 3.628 ms on "
+                  "the analytic maps (3 passes), ~21.8 ms on seeded weights "
+                  "(10 passes)",
+}
+# the resolve kernels by their names in a profile: the launches one pass of
+# 8 steps may make
+PASS_LAUNCHES = {"chase_walk_kernel": 1, "flood_march_kernel": 2}
 TRAIN_KERNELS = INFER_KERNELS + ("conv3x3_raw",)   # validation infers
 TRAIN_STEPS, RESUME_STEPS = 20, 24       # the train main path, then a resume
 QUALITY_STEPS = 200                      # bench.py's trained-weights recipe
@@ -208,9 +234,75 @@ def phase_build():
             print("    " + line.strip())
 
 
+def kernel_launch_counts(fn, attempts: int = 3) -> dict:
+    """Launches by kernel name during one ``fn()`` (``torch.profiler``);
+    empty where the profiler sees no device activity in any attempt (a
+    trace of two or three kernels often comes back without its device
+    events: give it more)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        if counts:
+            return counts
+    return {}
+
+
+def check_launches_per_pass(fg, pk, reps: int = 5) -> None:
+    """The kernel launches of K1 and of a pass of 8 steps of K2 and K3 on one
+    pair of maps, from one ``torch.profiler`` trace over K1 once and
+    ``reps`` passes of each: the chase walks in one launch (K1's tail too,
+    so ``1 + reps`` in all), the flood takes at most ``PASS_LAUNCHES`` of
+    its own a pass. Run after everything that is timed on the host's clock:
+    once the profiler has traced, every later launch of the process costs
+    the host more."""
+    from tpuseg_torch.ops.resolve import chase_pass, chase_resolve, flood_pass
+    from tpuseg_torch.ops.seed import seed_chase_pass
+
+    thr = 0.5
+    fgm = fg >= thr
+    dirs, v = seed_chase_pass(pk, fg, thr, thr, (2, 2, 2))
+    pot = torch.where(fgm, fg.float(), float("-inf"))
+    lab0 = torch.where(fgm, chase_resolve(v, dirs, fgm).clamp(min=0),
+                       0).to(torch.int32)
+
+    def calls():
+        seed_chase_pass(pk, fg, thr, thr, (2, 2, 2))
+        for _ in range(reps):
+            chase_pass(v, dirs, fgm, 8)
+            flood_pass(pot, lab0, 8)
+
+    counts = kernel_launch_counts(calls)
+    if not counts:
+        print("[12] kernel launches: not measured (no device trace)")
+        return
+    walks, floods = (sum(n for key, n in counts.items() if name in key)
+                     for name in PASS_LAUNCHES)
+    most = PASS_LAUNCHES["flood_march_kernel"]
+    if walks != 1 + reps or not reps <= floods <= most * reps:
+        raise AssertionError(
+            f"K1 and {reps} passes of 8 steps of K2 and K3 launched "
+            f"chase_walk_kernel {walks} times (expected {1 + reps}) and "
+            f"flood_march_kernel {floods} times (expected {reps}..."
+            f"{most * reps}): {counts}")
+    print(f"[12] kernel launches: K1 and {reps} chase passes of 8 steps "
+          f"{walks} x chase_walk_kernel (one each), {reps} flood passes of 8 "
+          f"steps {floods} x flood_march_kernel (at most {most} each)")
+
+
 def compare_kernels(fg, pk, timed: bool):
     """K1-K3 against their twins on one pair of maps; returns per kernel a
-    record with max_abs_err and, if timed, ms, plain_ms and the bound.
+    record with max_abs_err and, if timed: for K1 ms, plain_ms and the bound
+    of the call; for K2 and K3 those of one pass of 8 steps from the state
+    the resolve starts in, and resolve_ms, resolve_plain_ms, passes and
+    resolve_bound_ms of the whole ``chase_resolve`` / ``flood_resolve``.
 
     Bounds, per voxel: K1 reads two float32 maps and writes two int32
     volumes (16 B) for about 60 compare/select operations (two separable
@@ -218,10 +310,11 @@ def compare_kernels(fg, pk, timed: bool):
     read values, dirs and the mask and write values (13 B); a K3 pass must
     read the potential and the labels and write the labels (12 B), each
     for about 8 x 10 operations; the resolve loops are data dependent, so
-    the bound counts the passes this input ran. No single library call
+    their bound counts the passes this input ran. No single library call
     computes any of the three."""
-    from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve,
-                                          chase_resolve_plain, flood_pass,
+    from tpuseg_torch.ops.resolve import (chase_pass, chase_pass_plain,
+                                          chase_resolve, chase_resolve_plain,
+                                          flood_pass, flood_pass_plain,
                                           flood_resolve, flood_resolve_plain)
     from tpuseg_torch.ops.seed import seed_chase_pass, seed_chase_pass_plain
 
@@ -242,6 +335,15 @@ def compare_kernels(fg, pk, timed: bool):
         flood_pass, 12, 80,
         lambda: flood_resolve(v_res, fgm, fg, flood_iters),
         lambda: flood_resolve_plain(v_res, fgm, fg, flood_iters))
+    # one pass of 8 from where each resolve starts
+    pot = torch.where(fgm, fg.float(), float("-inf"))
+    lab0 = torch.where(fgm, v_res, 0).to(torch.int32)
+    one_pass = {
+        "chase_pass": (lambda: chase_pass(v, dirs, fgm, 8),
+                       lambda: chase_pass_plain(v, dirs, fgm, 8)),
+        "flood_pass": (lambda: flood_pass(pot, lab0, 8),
+                       lambda: flood_pass_plain(pot, lab0, 8)),
+    }
     out = {}
     for name, (wrapper, vox_bytes, vox_ops, kern, plain) in runs.items():
         before = wrapper.launches
@@ -255,13 +357,110 @@ def compare_kernels(fg, pk, timed: bool):
             raise AssertionError(f"{name}: kernel != twin at {tuple(fg.shape)} "
                                  f"(max abs err {err})")
         out[name] = {"max_abs_err": err}
-        if timed:
+        if not timed:
+            continue
+
+        def call_bound(n):
+            return bound(n * vox_bytes * fg.numel(), n * vox_ops * fg.numel(),
+                         F32_FLOPS)
+
+        if name in one_pass:
             out[name].update(
-                ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 2),
-                library_ms=None, passes=passes,
-                **bound(passes * vox_bytes * fg.numel(),
-                        passes * vox_ops * fg.numel(), F32_FLOPS))
+                ms=cuda_ms(one_pass[name][0], 10),
+                plain_ms=cuda_ms(one_pass[name][1], 2), library_ms=None,
+                **call_bound(1), passes=passes, resolve_ms=cuda_ms(kern, 5),
+                resolve_plain_ms=cuda_ms(plain, 2),
+                resolve_bound_ms=call_bound(passes)["bound_ms"])
+        else:
+            out[name].update(ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 2),
+                             library_ms=None, passes=passes, **call_bound(1))
     return out
+
+
+def print_kernel_times(phase: str, load: str, recs: dict) -> None:
+    """One line per kernel of a timed ``compare_kernels`` record."""
+    for name, r in recs.items():
+        line = (f"[{phase}] {name} on {load}: kernel {r['ms']:.3f} ms, twin "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+                f"{r['bound_by']}")
+        if "resolve_ms" in r:
+            line += (f" (one pass of 8); resolve {r['resolve_ms']:.3f} ms in "
+                     f"{r['passes']} passes, twin {r['resolve_plain_ms']:.3f} "
+                     f"ms, bound {r['resolve_bound_ms']:.3f} ms")
+        print(f"{line}; earlier: {EARLIER[name]}")
+
+
+def random_resolve_inputs(shape, seed: int):
+    """Inputs no watershed would make, on the card: int32 payloads over the
+    whole range (three in ten 0), codes 0..6 wherever they point, a mask;
+    a potential of four levels with a quarter of the voxels at -inf, and
+    labels of either sign on one voxel in fifty, off the foreground too."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand():
+        return torch.rand(shape, device="cuda", generator=g)
+
+    def randint(lo, hi):
+        return torch.randint(lo, hi, shape, device="cuda", generator=g)
+
+    values = torch.where(rand() < 0.3, 0, randint(-2**31, 2**31)).to(torch.int32)
+    dirs = randint(0, 7).to(torch.int32)
+    fgm = rand() < 0.6
+    pot = torch.where(rand() < 0.25, float("-inf"), randint(0, 4) / 4.0).float()
+    labels = torch.where(rand() < 0.02, randint(-5, 2**31), 0).to(torch.int32)
+    return values, dirs, fgm, pot, labels
+
+
+def compare_random_passes(shape) -> str:
+    """Single passes of K2 and K3 at each of ``PASS_ITERS`` steps, and capped
+    resolves, against the twins on ``random_resolve_inputs``: elementwise,
+    and the unresolved count and the changed flag with them."""
+    from tpuseg_torch.ops.resolve import (chase_pass, chase_pass_plain,
+                                          chase_resolve, chase_resolve_plain,
+                                          flood_pass, flood_pass_plain,
+                                          flood_resolve, flood_resolve_plain)
+
+    values, dirs, fgm, pot, labels = random_resolve_inputs(shape, SEED + 2)
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} at {tuple(shape)}: kernel != twin "
+                                 f"on {int((got != want).sum())} voxels")
+
+    moved = []
+    for iters in PASS_ITERS:
+        (got, n), (want, n_want) = (f(values, dirs, fgm, iters)
+                                    for f in (chase_pass, chase_pass_plain))
+        same(f"chase_pass({iters})", got, want)
+        if int(n) != int(n_want):
+            raise AssertionError(f"chase_pass({iters}): unresolved {int(n)} "
+                                 f"!= twin's {int(n_want)}")
+        (got, ch), (want, ch_want) = (f(pot, labels, iters)
+                                      for f in (flood_pass, flood_pass_plain))
+        same(f"flood_pass({iters})", got, want)
+        if bool(ch) != bool(ch_want):
+            raise AssertionError(f"flood_pass({iters}): changed {bool(ch)} "
+                                 f"!= twin's {bool(ch_want)}")
+        moved.append(int((got != labels).sum()))
+    same("chase_resolve(max_passes=2)",
+         chase_resolve(values, dirs, fgm, max_passes=2),
+         chase_resolve_plain(values, dirs, fgm, max_passes=2))
+    fg_of_pot = pot > float("-inf")
+    for max_iters in (13, 96):
+        same(f"flood_resolve(max_iters={max_iters})",
+             flood_resolve(labels, fg_of_pot, pot, max_iters),
+             flood_resolve_plain(labels, fg_of_pot, pot, max_iters))
+    # a flood with nothing left to take must report no change
+    done = flood_resolve_plain(labels, fg_of_pot, pot, 10_000)
+    got, ch = flood_pass(pot, torch.where(fg_of_pot, done, 0), 8)
+    same("flood_pass at the fixed point", got, torch.where(fg_of_pot, done, 0))
+    if bool(ch):
+        raise AssertionError("flood_pass reports a change at the fixed point")
+    return (f"{tuple(shape)}: chase_pass and flood_pass at {PASS_ITERS} steps, "
+            f"chase_resolve(max_passes=2), flood_resolve(max_iters=13 and 96) "
+            f"and a flood pass at its fixed point == twins (flood passes "
+            f"labelled {moved} voxels)")
 
 
 def phase_kernels(image: np.ndarray):
@@ -274,10 +473,11 @@ def phase_kernels(image: np.ndarray):
     rag = compare_kernels(*analytic_maps(ragged, "cuda"), timed=False)
     for name, r in main.items():
         r["max_abs_err"] = max(r["max_abs_err"], rag[name]["max_abs_err"])
-        print(f"[3] {name}: == twin at {MAIN_SHAPE} and {RAGGED_SHAPE}; "
-              f"kernel {r['ms']:.3f} ms ({r['passes']} launches), twin "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
-              f"{r['bound_by']} at {MAIN_SHAPE}")
+    print(f"[3] K1-K3 == twins at {MAIN_SHAPE} and {RAGGED_SHAPE} on the "
+          "analytic maps")
+    print_kernel_times("3", f"the analytic maps, {MAIN_SHAPE}", main)
+    for shape in (MAIN_SHAPE, RAGGED_SHAPE):
+        print(f"[3] random inputs, {compare_random_passes(shape)}")
     return main
 
 
@@ -448,7 +648,9 @@ def phase_main_path(image: np.ndarray, tmp: str):
 
 def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
     """The same main path, warm, timed per stage; then its post-processing
-    again through the plain twins on the same logits: labels must agree."""
+    again through the plain twins on the same logits: labels must agree;
+    then K1-K3 against their twins on the probabilities of those logits.
+    Returns that comparison's record (``compare_kernels``)."""
     from tpuseg_torch.ckpt import load_pth
     from tpuseg_torch.infer import make_infer_stages
     from tpuseg_torch.models import build_model
@@ -479,6 +681,14 @@ def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
                              f"{int((labels != plain).sum())} voxels")
     print(f"[4] main-path post-processing: kernels == twins elementwise "
           f"({int(labels.max())} instances)")
+    del labels, plain
+    # K1-K3 one by one on this load, as phase 3 has them on the analytic maps
+    seeded = compare_kernels(torch.sigmoid(logits["fg_logits"]).float(),
+                             torch.sigmoid(logits["peak_logits"]).float(),
+                             timed=True)
+    print("[4] K1-K3 == twins on the seeded-weights probabilities")
+    print_kernel_times("4", "the seeded-weights probabilities", seeded)
+    return seeded
 
 
 def phase_analytic(sv):
@@ -1092,6 +1302,8 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
         torch.cuda.synchronize()
         post_ms[tag] = round(1e3 * (time.perf_counter() - t0), 1)
     print(f"[12] warm post-processing ms by composition: {post_ms}")
+    check_launches_per_pass(torch.sigmoid(logits["plain"]["fg_logits"]).float(),
+                            torch.sigmoid(logits["plain"]["peak_logits"]).float())
     return {"fused_convblock": k4_launches,
             "fused_peak_nms": launches["fused_peak_nms"]}
 
@@ -1128,7 +1340,10 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             launches, ckpt, cfg, default_labels = _timed(
                 "phase 4", phase_main_path, sv.image, tmp)
-            _timed("phase 4 warm", phase_warm_stages, sv.image, ckpt, cfg)
+            seeded = _timed("phase 4 warm", phase_warm_stages, sv.image, ckpt,
+                            cfg)
+            for k in kernels:           # phase 3's records, where it ran
+                kernels[k]["seeded_weights"] = seeded[k]
     if want(5):
         _timed("phase 5", phase_analytic, sv)
     if want(6):

@@ -9,7 +9,7 @@
 //   seeds = cidx >= 0 & cidx == midx & fg,  fg = fg_prob >= fg_thr
 //   dirs  = steepest ascent over (peak on fg, lin), 0 at seeds and off fg
 //   v0    = +(lin+1) at seeded roots, -(lin+1) at unseeded roots, 0 elsewhere
-//   v     = h0 lockstep chase steps (the K2 step kernel)
+//   v     = h0 lockstep chase steps (the K2 walk kernel: one launch)
 //
 // The candidate steps (mx, cidx, midx) are nms.cuh's, shared with the
 // peak-NMS kernel (nms.cu).
@@ -17,9 +17,9 @@
 // Bound: memory. Each pooling launch reads 4 bytes per voxel (the 2r window
 // along the axis comes from cache) and writes 4; the seed/dirs launch reads
 // peak and fg at 7 points (mostly cached) plus cidx/midx and writes 8. About
-// 14 whole-volume passes of ~8 bytes per voxel plus h0 chase steps: at least
-// ~1-2 ms over 96x512x512 at 3.35 TB/s. Fusing it into one shared-memory tile
-// pass, as the TPU kernel does in VMEM, is later work.
+// 14 whole-volume passes of ~8 bytes per voxel plus one chase walk of ~12:
+// at least ~1 ms over 96x512x512 at 3.35 TB/s, against 0.12 ms for the bytes
+// the function must move. The pooling chain is what is left to fuse.
 #include "nms.cuh"
 
 namespace tpuseg {
@@ -67,13 +67,12 @@ __global__ void seed_dirs_kernel(const float* __restrict__ peak,
 using namespace tpuseg;
 
 // (dirs, v) of pallas_seed.seed_chase_pass. Scratch: f0, f1 (float, volume
-// sized) and cidx, i0, i1, v_tmp (int, volume sized). The result v lands in
-// v_out.
+// sized) and cidx, i0, i1 (int, volume sized). The result v lands in v_out.
 extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
                                  float peak_thr, float fg_thr, int rz, int ry,
                                  int rx, int h0, int D, int H, int W,
                                  float* f0, float* f1, int* cidx, int* i0,
-                                 int* i1, int* dirs, int* v_out, int* v_tmp,
+                                 int* i1, int* dirs, int* v_out,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = volume_grid(D, H, W);
@@ -84,11 +83,11 @@ extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
                                    D, H, W, s, &err);
   if (err != cudaSuccess) return err;
 
-  // v0 goes where the first chase step does not write (see pingpong_dst)
-  int* v0 = (h0 % 2 == 1) ? v_tmp : v_out;
+  // the pooled peak map in f0/f1 is dead once cidx exists: f0 holds v0
+  int* v0 = reinterpret_cast<int*>(f0);
   seed_dirs_kernel<<<grid, kThreads, 0, s>>>(peak, fgp, cidx, midx, dirs, v0,
                                              fg_thr, D, H, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return run_chase(v0, dirs, v_out, v_tmp, nullptr, nullptr, h0, D, H, W, s);
+  return run_chase(v0, dirs, v_out, nullptr, nullptr, h0, D, H, W, s);
 }

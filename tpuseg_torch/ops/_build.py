@@ -33,8 +33,9 @@ _F = ctypes.c_float
 # void* so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "tpuseg_seed_chase": [_P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "tpuseg_chase_pass": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                          _P, _P, _P, _P, _P, _P, _P, _P],
+    "tpuseg_chase_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpuseg_flood_steps_per_launch": [],
     "tpuseg_flood_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuseg_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_conv3x3_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -5,8 +5,17 @@ versions with one contract:
 
 * ``chase_pass`` / ``flood_pass`` — the wrappers. A CUDA tensor launches the
   hand-written kernel (``csrc/resolve.cu``) or raises; a CPU tensor takes
-  the plain PyTorch twin. ``.launches`` counts kernel launches.
+  the plain PyTorch twin. ``.launches`` counts passes run by a kernel.
 * ``chase_pass_plain`` / ``flood_pass_plain`` — the twins, on any device.
+
+A pass returns exactly what ``iters`` lockstep steps return, but the kernels
+do not take the steps one by one. The chase's direction codes are fixed
+within a pass, so a pass is ``out[x] = in[p^iters(x)]`` with ``p`` the parent
+map: one launch in which every voxel walks up to ``iters`` hops and reads the
+value where it arrives (``csrc/common.cuh``). The flood is a wavefront and
+cannot be walked: its kernel keeps a few z planes of a (y, x) tile in shared
+memory and runs several steps on them per trip through device memory
+(``csrc/flood.cuh``), so a pass of 8 steps is two launches.
 
 ``chase_resolve`` / ``flood_resolve`` loop over the wrappers; the
 ``*_plain`` loops run the twins (``chip_smoke.py`` holds the two against each
@@ -16,8 +25,6 @@ other on the card). Both keep the TPU version's loop structure exactly:
   first pass and after every pass, up to ``max_passes`` passes;
 * flood: whole passes while anything changes, then the remainder pass, so a
   capped flood runs exactly ``max_iters`` lockstep steps.
-
-Every step is lockstep (ping-pong buffers), as on the TPU.
 """
 
 from __future__ import annotations
@@ -66,13 +73,11 @@ def chase_pass(values, dirs, fg_mask, iters: int = 8):
     fg = fg_mask.to(torch.bool).contiguous()
     _build.check_volume(v, d, fg)
     out = torch.empty_like(v)
-    tmp = torch.empty_like(v)
     count = torch.empty((), dtype=torch.int32, device=v.device)
     depth, h, w = v.shape
     err = _build.load().tpuseg_chase_pass(
         v.data_ptr(), d.data_ptr(), fg.data_ptr(), out.data_ptr(),
-        tmp.data_ptr(), count.data_ptr(), iters, depth, h, w,
-        _build.stream_ptr())
+        count.data_ptr(), iters, depth, h, w, _build.stream_ptr())
     _build.check(err, "chase_pass")
     chase_pass.launches += 1
     return out, count
@@ -151,12 +156,16 @@ def flood_pass(potential, labels, iters: int = 8):
     pot = potential.to(torch.float32).contiguous()
     lab = labels.to(torch.int32).contiguous()
     _build.check_volume(pot, lab)
+    lib = _build.load()
     out = torch.empty_like(lab)
-    tmp = torch.empty_like(lab)
+    # a pass of more steps than one launch runs alternates between two volumes
+    tmp = (torch.empty_like(lab)
+           if iters > lib.tpuseg_flood_steps_per_launch() else None)
     changed = torch.empty((), dtype=torch.int32, device=lab.device)
     depth, h, w = lab.shape
-    err = _build.load().tpuseg_flood_pass(
-        pot.data_ptr(), lab.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+    err = lib.tpuseg_flood_pass(
+        pot.data_ptr(), lab.data_ptr(), out.data_ptr(),
+        tmp.data_ptr() if tmp is not None else None,
         changed.data_ptr(), iters, depth, h, w, _build.stream_ptr())
     _build.check(err, "flood_pass")
     flood_pass.launches += 1

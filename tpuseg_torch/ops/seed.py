@@ -8,6 +8,7 @@ payloads + the first chase steps (K1; port of ``tpuseg/ops/pallas_seed.py``).
   dirs  = steepest_dir_codes(peak, fg, self_sticky=seeds)
   v0    = +lin+1 at seeded roots, -(lin+1) at unseeded roots, 0 elsewhere
   v     = h0 lockstep chase steps of V[x] <- V[x + offset(dirs[x])]
+          (on the card one hop-walk launch, see ``ops/resolve.py``)
 
 and returns ``(dirs, v)``, the state ``resolve.chase_resolve`` continues
 from. A CUDA tensor runs the hand-written kernels of ``csrc/seed.cu`` (any
@@ -56,14 +57,13 @@ def seed_chase_pass(peak_prob, fg_prob, peak_threshold, fg_threshold,
         return torch.empty(peak.shape, dtype=torch.int32, device=peak.device)
 
     f0, f1 = torch.empty_like(peak), torch.empty_like(peak)
-    cidx, i0, i1, dirs, v, vtmp = (ivol() for _ in range(6))
+    cidx, i0, i1, dirs, v = (ivol() for _ in range(5))
     d, h, w = peak.shape
     err = _build.load().tpuseg_seed_chase(
         peak.data_ptr(), fgp.data_ptr(), float(peak_threshold),
         float(fg_threshold), rz, ry, rx, h0, d, h, w,
         f0.data_ptr(), f1.data_ptr(), cidx.data_ptr(), i0.data_ptr(),
-        i1.data_ptr(), dirs.data_ptr(), v.data_ptr(), vtmp.data_ptr(),
-        _build.stream_ptr())
+        i1.data_ptr(), dirs.data_ptr(), v.data_ptr(), _build.stream_ptr())
     _build.check(err, "seed_chase_pass")
     seed_chase_pass.launches += 1
     return dirs, v
