@@ -14,15 +14,22 @@ Phases, in order; any failure raises and exits non-zero:
    ``chase_pass`` / ``flood_pass`` calls of 1, 3, 8 and 11 steps on random
    int32 payloads, random codes 0..6 (many point out of the volume) and
    random labels of either sign over a four-level potential (plateaus), a
-   chase capped at 2 passes and floods capped at 13 and 96 steps; kernel and
-   twin times (CUDA events, after a warm-up) at 96x512x512, per pass of 8
-   steps and per resolve, beside the figures of the earlier
-   one-launch-per-step design;
+   chase capped at 2 passes and floods capped at 13 and 96 steps; K1 (dirs
+   and v both) on the inputs a tile pass can get wrong
+   (``tpuseg_torch/ops/nms_cases.py``: a constant map, plateaus across every
+   tile edge with the foreground cutting through them, values at the
+   threshold exactly) at 96x512x512, at a shape one more than a multiple of
+   the tile and at one below a tile, under per-axis radii 0..4 in mixed
+   triples (the tile pass) and above 4 (the chain of whole-volume launches);
+   kernel and twin times (CUDA events, after a warm-up) at 96x512x512, per
+   pass of 8 steps and per resolve, K1 beside the chain it replaced, all
+   beside the figures of the earlier designs;
 4. the main path through its entry point: ``tpuseg_torch.cli.infer.main`` on
    a 96x512x512 volume with seeded weights of the full default U-Net
    (32/64/128/256, head 32, bf16) under the default InferConfig; every
-   kernel's launch counter must be above 0 after the run; then, warm, the
-   stage times, and its post-processing through the twins on the same
+   kernel's launch counter must be above 0 after the run, K1's by the tile
+   pass; then, warm, the stage times and each stage's peak device memory,
+   and its post-processing through the twins on the same
    logits: labels equal elementwise; then K1-K3 against their twins on
    those seeded-weights probabilities (the main path's load: tens of chase
    passes, ten flood passes), with times per resolve;
@@ -61,8 +68,10 @@ Phases, in order; any failure raises and exits non-zero:
     mode: cuDNN convs + BatchNorm + ReLU), with TFLOP/s and their ratio;
 11. K5 against its twin, elementwise, at 96x512x512 (radius 2) and at
     45x203x301 (radius (1, 2, 2), once more on a quantized map full of
-    plateaus, and with radius 0 on z); times of the kernel, the twin and a
-    ``F.max_pool3d`` NMS without the index tie-break (timing only);
+    plateaus, and with radius 0 on z), each once more through the chain,
+    and on the adversarial inputs and radii of phase 3; times of the kernel
+    (one tile pass), the chain it replaced, the twin and a ``F.max_pool3d``
+    NMS without the index tie-break (timing only);
 12. the fused main path: ``cli.infer`` with ``infer.apply_impl="fused"`` on
     the stack and checkpoint of phase 4: K4 launched 3 x 48 = 144 times,
     all by the tensor-core kernel, K1-K3 above 0; warm stage times beside the plain sweep's, and each
@@ -71,12 +80,21 @@ Phases, in order; any failure raises and exits non-zero:
     ``postproc.nms_impl="pallas"`` (K5 launched, labels elementwise equal
     to phase 4's) and ``postproc.method="flood"`` against its plain run,
     and the warm post-processing time of each composition; last, the
-    kernel launches K1 and one pass of 8 steps of K2 and K3 make
-    (``torch.profiler``: one walk launch for K1 and for a chase pass, at
-    most two for a flood pass).
+    kernel launches K1, K5 and one pass of 8 steps of K2 and K3 make
+    (``torch.profiler``: one tile-pass launch and one walk launch for K1,
+    one tile-pass launch for K5, none of the chain's kernels, one walk
+    launch for a chase pass, at most two for a flood pass);
+13. (run after phase 9, with its checkpoint) ``cli.infer`` on the stack
+    under the two inference configurations of the JAX package's
+    ``bench.py``: one whole-volume float32 tile (96, 512, 512) with no halo,
+    and bf16 tiles (96, 256, 512) with halo (0, 8, 0) through the fused
+    apply with peak threshold 0.35, both calibrated: K4 launched 3 x 2
+    times on the tensor cores in the second, K1-K3 above 0 and convergence
+    reported in both, F1@IoU0.5 within 0.02 of phase 9's calibrated figure;
+    wall time, Mvox/s, instances, F1 and peak device memory of each.
 
-``--phases 10,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record). Without arguments every phase runs; the
+``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
+alone; no final record; 12 brings 4 with it and 13 brings 9). Without arguments every phase runs; the
 second-to-last lines are then the kernels' JSON record (with each kernel's
 bound: the larger of its bytes over the card's memory rate and its
 operations over the card's peak rate, from this run's shapes) and
@@ -136,10 +154,15 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 INFER_KERNELS = ("seed_chase_pass", "chase_pass", "flood_pass")
 PASS_ITERS = (1, 3, 8, 11)              # single passes held against the twins
-# The one-launch-per-step design these kernels had before (PERF.md; NVIDIA
-# H100 80GB HBM3, 700.00 W, 96x512x512), printed beside the new times.
+# The designs these kernels had before (PERF.md; NVIDIA H100 80GB HBM3,
+# 700.00 W, 96x512x512), printed beside the new times: K2 and K3 with one
+# launch per step, K1 and K5 as a chain of whole-volume launches (which is
+# still their body for radii above 4 and is timed again in this run).
 EARLIER = {
-    "seed_chase_pass": "2.131 ms, of which its 8 chase steps ~1.25",
+    "seed_chase_pass": "the chain of whole-volume launches 1.189 ms on the "
+                       "analytic maps, 1.609 ms on seeded weights; before "
+                       "that, with 8 chase-step launches, 2.131 ms",
+    "fused_peak_nms": "the chain of whole-volume launches 1.003 ms",
     "chase_pass": "~0.156 ms a step, ~1.25 ms a pass of 8; resolve 1.328 ms "
                   "on the analytic maps (1 pass), ~28.7 ms on seeded weights "
                   "(23 passes)",
@@ -150,6 +173,11 @@ EARLIER = {
 # the resolve kernels by their names in a profile: the launches one pass of
 # 8 steps may make
 PASS_LAUNCHES = {"chase_walk_kernel": 1, "flood_march_kernel": 2}
+# K1's and K5's kernels by name: the tile pass (one launch a call) and the
+# chain's, which a call at radius 2 must not launch
+TILE_KERNEL = "nms_tile_kernel"
+CHAIN_KERNELS = ("maxpool_axis_kernel", "candidate_index_kernel",
+                 "seed_dirs_kernel", "seed_mask_kernel")
 TRAIN_KERNELS = INFER_KERNELS + ("conv3x3_raw",)   # validation infers
 TRAIN_STEPS, RESUME_STEPS = 20, 24       # the train main path, then a resume
 QUALITY_STEPS = 200                      # bench.py's trained-weights recipe
@@ -234,35 +262,45 @@ def phase_build():
             print("    " + line.strip())
 
 
-def kernel_launch_counts(fn, attempts: int = 3) -> dict:
-    """Launches by kernel name during one ``fn()`` (``torch.profiler``);
-    empty where the profiler sees no device activity in any attempt (a
-    trace of two or three kernels often comes back without its device
-    events: give it more)."""
+def kernel_launch_counts(fn, complete=None, attempts: int = 4) -> dict:
+    """Launches by kernel name during one ``fn()`` (``torch.profiler``). A
+    trace often comes back without its first device events, or without any
+    when it holds only two or three kernels: so a few throwaway launches
+    open each trace, and one that ``complete(counts)`` finds short is
+    taken again. Returns the last trace; empty where the profiler saw no
+    device activity in any attempt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    counts = {}
+    scratch = torch.zeros(1 << 20, device="cuda")
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                scratch.add_(1.0)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         counts = {e.key: e.count for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA}
-        if counts:
-            return counts
-    return {}
+        if counts and (complete is None or complete(counts)):
+            break
+    return counts
 
 
 def check_launches_per_pass(fg, pk, reps: int = 5) -> None:
-    """The kernel launches of K1 and of a pass of 8 steps of K2 and K3 on one
-    pair of maps, from one ``torch.profiler`` trace over K1 once and
-    ``reps`` passes of each: the chase walks in one launch (K1's tail too,
-    so ``1 + reps`` in all), the flood takes at most ``PASS_LAUNCHES`` of
-    its own a pass. Run after everything that is timed on the host's clock:
+    """The kernel launches of K1, of K5 and of a pass of 8 steps of K2 and K3
+    on one pair of maps, from one ``torch.profiler`` trace over K1 and K5
+    once and ``reps`` passes of each: K1 is one tile-pass launch and one
+    walk launch, K5 one tile-pass launch, and neither launches a kernel of
+    the chain; the chase walks in one launch (so ``1 + reps`` in all), the
+    flood takes at most ``PASS_LAUNCHES`` of its own a pass. Run after
+    everything that is timed on the host's clock:
     once the profiler has traced, every later launch of the process costs
     the host more."""
+    from tpuseg_torch.ops.nms import fused_peak_nms
     from tpuseg_torch.ops.resolve import chase_pass, chase_resolve, flood_pass
     from tpuseg_torch.ops.seed import seed_chase_pass
 
@@ -275,26 +313,40 @@ def check_launches_per_pass(fg, pk, reps: int = 5) -> None:
 
     def calls():
         seed_chase_pass(pk, fg, thr, thr, (2, 2, 2))
+        fused_peak_nms(pk, thr, (2, 2, 2))
         for _ in range(reps):
             chase_pass(v, dirs, fgm, 8)
             flood_pass(pot, lab0, 8)
 
-    counts = kernel_launch_counts(calls)
+    def named(counts, name):
+        return sum(n for key, n in counts.items() if name in key)
+
+    # a trace that lost events counts too few launches, never too many
+    counts = kernel_launch_counts(calls, complete=lambda c: (
+        named(c, TILE_KERNEL) >= 2 and named(c, "chase_walk_kernel") >= 1 + reps
+        and named(c, "flood_march_kernel") >= reps))
     if not counts:
         print("[12] kernel launches: not measured (no device trace)")
         return
-    walks, floods = (sum(n for key, n in counts.items() if name in key)
-                     for name in PASS_LAUNCHES)
+    walks, floods = (named(counts, name) for name in PASS_LAUNCHES)
     most = PASS_LAUNCHES["flood_march_kernel"]
-    if walks != 1 + reps or not reps <= floods <= most * reps:
+    tiles = named(counts, TILE_KERNEL)
+    chain = {key: n for key, n in counts.items()
+             if any(name in key for name in CHAIN_KERNELS)}
+    if (walks != 1 + reps or not reps <= floods <= most * reps or tiles != 2
+            or chain):
         raise AssertionError(
-            f"K1 and {reps} passes of 8 steps of K2 and K3 launched "
+            f"K1, K5 and {reps} passes of 8 steps of K2 and K3 launched "
+            f"{TILE_KERNEL} {tiles} times (expected 2: one for K1, one for "
+            f"K5), the chain's kernels {chain} (expected none), "
             f"chase_walk_kernel {walks} times (expected {1 + reps}) and "
             f"flood_march_kernel {floods} times (expected {reps}..."
             f"{most * reps}): {counts}")
-    print(f"[12] kernel launches: K1 and {reps} chase passes of 8 steps "
-          f"{walks} x chase_walk_kernel (one each), {reps} flood passes of 8 "
-          f"steps {floods} x flood_march_kernel (at most {most} each)")
+    print(f"[12] kernel launches: K1 one {TILE_KERNEL} and one "
+          f"chase_walk_kernel, K5 one {TILE_KERNEL}, none of the chain's; "
+          f"{reps} chase passes of 8 steps {walks - 1} x chase_walk_kernel "
+          f"(one each), {reps} flood passes of 8 steps {floods} x "
+          f"flood_march_kernel (at most {most} each)")
 
 
 def compare_kernels(fg, pk, timed: bool):
@@ -346,9 +398,12 @@ def compare_kernels(fg, pk, timed: bool):
     }
     out = {}
     for name, (wrapper, vox_bytes, vox_ops, kern, plain) in runs.items():
-        before = wrapper.launches
+        before = wrapper.launches, getattr(wrapper, "tile_launches", None)
         got, want = kern(), plain()
-        passes = wrapper.launches - before
+        passes = wrapper.launches - before[0]
+        if before[1] is not None and wrapper.tile_launches - before[1] != 1:
+            raise AssertionError(f"{name}: radius {radius} did not take the "
+                                 "tile pass")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
@@ -372,8 +427,17 @@ def compare_kernels(fg, pk, timed: bool):
                 resolve_plain_ms=cuda_ms(plain, 2),
                 resolve_bound_ms=call_bound(passes)["bound_ms"])
         else:
-            out[name].update(ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 2),
-                             library_ms=None, passes=passes, **call_bound(1))
+            # K1: the tile pass, and beside it the chain it replaced (still
+            # the body for radii above 4), through the wrapper's hook
+            chain = seed_chase_pass(pk, fg, thr, thr, radius, body="chain")
+            if any(not torch.equal(a, b) for a, b in zip(chain, want)):
+                raise AssertionError(f"{name}: chain body != twin at "
+                                     f"{tuple(fg.shape)}")
+            out[name].update(
+                ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 2),
+                chain_ms=cuda_ms(lambda: seed_chase_pass(
+                    pk, fg, thr, thr, radius, body="chain"), 10),
+                library_ms=None, passes=passes, **call_bound(1))
     return out
 
 
@@ -387,6 +451,9 @@ def print_kernel_times(phase: str, load: str, recs: dict) -> None:
             line += (f" (one pass of 8); resolve {r['resolve_ms']:.3f} ms in "
                      f"{r['passes']} passes, twin {r['resolve_plain_ms']:.3f} "
                      f"ms, bound {r['resolve_bound_ms']:.3f} ms")
+        if "chain_ms" in r:
+            line += (f" (the tile pass and the walk); the chain in this run "
+                     f"{r['chain_ms']:.3f} ms")
         print(f"{line}; earlier: {EARLIER[name]}")
 
 
@@ -463,6 +530,78 @@ def compare_random_passes(shape) -> str:
             f"labelled {moved} voxels)")
 
 
+def compare_tile_cases(kernel: str) -> str:
+    """K1 (``kernel="seed"``: dirs and v both) or K5 (``"nms"``: the mask)
+    against the plain twin on the inputs a tile pass can get wrong
+    (``tpuseg_torch/ops/nms_cases.py``): a constant map (its seeds are known
+    in closed form), maps of plateaus across every tile edge with the
+    foreground cutting through them, values at the threshold exactly; at
+    the main-path shape (radius 2 and a mixed triple), at a shape one more
+    than a multiple of the tile with two z chunks, and at a shape below one
+    tile with rz >= D; every per-axis radius in ``TILE_RADII`` must take the
+    tile pass, and those of ``CHAIN_RADII`` the chain, and still equal the
+    twin. Also holds the rule's numbers to the library's."""
+    from tpuseg_torch.ops import _build
+    from tpuseg_torch.ops.nms import fused_peak_nms, fused_peak_nms_plain
+    from tpuseg_torch.ops.nms_cases import (CHAIN_RADII, EDGE_SHAPE,
+                                            SMALL_SHAPE, THRESHOLD, TILE_RADII,
+                                            adversarial_maps,
+                                            expected_constant_seeds)
+    from tpuseg_torch.ops.peaks import (TILE_MAX_RADIUS, nms_body,
+                                        nms_tile_smem_bytes)
+    from tpuseg_torch.ops.seed import seed_chase_pass, seed_chase_pass_plain
+
+    lib, optin = _build.load(), _build.smem_optin()
+    dirs = kernel == "seed"
+    if lib.tpuseg_nms_tile_max_radius() != TILE_MAX_RADIUS:
+        raise AssertionError("the rule's radius limit is not the library's")
+    for r in TILE_RADII:
+        need = nms_tile_smem_bytes(r)
+        if lib.tpuseg_nms_tile_smem(r[1], r[2]) != need \
+                or need > optin or nms_body(r, optin) != "tile":
+            raise AssertionError(f"radius {r}: the rule computes {need} B of "
+                                 f"shared memory (opt-in limit {optin} B)")
+    wrapper = seed_chase_pass if dirs else fused_peak_nms
+    n_cases = 0
+    for shape, radii in ((MAIN_SHAPE, ((2, 2, 2), (3, 1, 4))),
+                         (EDGE_SHAPE, TILE_RADII + CHAIN_RADII),
+                         (SMALL_SHAPE, TILE_RADII + CHAIN_RADII)):
+        for name, peak, fgp in adversarial_maps(shape, seed=SEED):
+            pk = torch.from_numpy(peak).cuda()
+            fg = torch.from_numpy(fgp).cuda()
+            for radius in radii:
+                tag = f"{wrapper.__name__} on the {name} map, {shape}, " \
+                      f"radius {radius}"
+                before = wrapper.tile_launches
+                if dirs:
+                    got = seed_chase_pass(pk, fg, THRESHOLD, 0.5, radius)
+                    want = seed_chase_pass_plain(pk, fg, THRESHOLD, 0.5,
+                                                 radius)
+                else:
+                    got = (fused_peak_nms(pk, THRESHOLD, radius),)
+                    want = (fused_peak_nms_plain(pk, THRESHOLD, radius),)
+                torch.cuda.synchronize()
+                ran_tile = wrapper.tile_launches - before
+                if ran_tile != int(radius in TILE_RADII):
+                    raise AssertionError(f"{tag}: the tile pass launched "
+                                         f"{ran_tile} times")
+                for what, a, b in zip(("dirs", "v") if dirs else ("seeds",),
+                                      got, want):
+                    if a.dtype != b.dtype or not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{tag}: {what}: kernel != twin on "
+                            f"{int((a != b).sum())} voxels")
+                if name == "constant" and not dirs:
+                    known = expected_constant_seeds(shape, radius)
+                    if not np.array_equal(got[0].cpu().numpy(), known):
+                        raise AssertionError(f"{tag}: not the known seeds")
+                n_cases += 1
+    return (f"{wrapper.__name__} == twin in {n_cases} adversarial cases "
+            f"(constant, quantized, blocks, at threshold; {MAIN_SHAPE}, "
+            f"{EDGE_SHAPE}, {SMALL_SHAPE}); radii {TILE_RADII} took the tile "
+            f"pass, {CHAIN_RADII} the chain")
+
+
 def phase_kernels(image: np.ndarray):
     from tpuseg_torch.data import synthesize_volume
 
@@ -478,6 +617,7 @@ def phase_kernels(image: np.ndarray):
     print_kernel_times("3", f"the analytic maps, {MAIN_SHAPE}", main)
     for shape in (MAIN_SHAPE, RAGGED_SHAPE):
         print(f"[3] random inputs, {compare_random_passes(shape)}")
+    print(f"[3] {compare_tile_cases('seed')}")
     return main
 
 
@@ -585,8 +725,9 @@ def _reset_launches():
 
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-        if hasattr(fn, "mma_launches"):
-            fn.mma_launches = 0
+        for body in ("mma_launches", "tile_launches"):
+            if hasattr(fn, body):
+                setattr(fn, body, 0)
 
 
 def _launches():
@@ -601,6 +742,14 @@ def _mma_launches():
 
     return {fn.__name__: fn.mma_launches for fn in KERNEL_WRAPPERS
             if hasattr(fn, "mma_launches")}
+
+
+def _tile_launches():
+    """Launches of the tile-pass bodies (K1, K5) since the last reset."""
+    from tpuseg_torch.ops import KERNEL_WRAPPERS
+
+    return {fn.__name__: fn.tile_launches for fn in KERNEL_WRAPPERS
+            if hasattr(fn, "tile_launches")}
 
 
 def phase_main_path(image: np.ndarray, tmp: str):
@@ -622,15 +771,18 @@ def phase_main_path(image: np.ndarray, tmp: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
+    tiles = _tile_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[4] cli.infer exit status {status} "
           f"({'flood truncated' if status == 4 else 'converged'}); "
-          f"kernel launches {launches}")
+          f"kernel launches {launches}, by the tile pass {tiles}")
     if status not in (0, 4):
         raise AssertionError(f"cli.infer returned {status}")
     missing = [k for k in INFER_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    if tiles["seed_chase_pass"] != launches["seed_chase_pass"]:
+        raise AssertionError("main path: K1 did not take the tile pass")
 
     labels = np.load(out_path)
     ids = np.unique(labels)
@@ -643,7 +795,7 @@ def phase_main_path(image: np.ndarray, tmp: str):
     print(f"[4] main path: {n_inst} instances; wall {wall:.3f} s incl. "
           f"first-call setup ({vox / wall / 1e6:.2f} Mvox/s); peak device "
           f"memory {peak_gb:.2f} GB")
-    return launches, ckpt, cfg, labels
+    return launches, tiles, ckpt, cfg, labels
 
 
 def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
@@ -662,19 +814,31 @@ def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
     vol = torch.from_numpy(image).cuda()
     stage_post(stage_net(vol))
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits = stage_net(vol)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    net_peak = torch.cuda.max_memory_allocated()
+    held_post = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     labels = stage_post(logits)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    post_peak = torch.cuda.max_memory_allocated()
     vox = int(np.prod(MAIN_SHAPE))
     print(f"[4] warm: net sweep {1e3 * (t1 - t0):.1f} ms, post {1e3 * (t2 - t1):.1f}"
           f" ms, total {1e3 * (t2 - t0):.1f} ms ({vox / (t2 - t0) / 1e6:.2f} Mvox/s)")
+    print(f"[4] warm peak device memory by stage (model and volume held: "
+          f"{held / 1e6:.1f} MB): net sweep {net_peak / 1e6:.1f} MB; "
+          f"post-processing {post_peak / 1e6:.1f} MB, of which "
+          f"{(post_peak - held_post) / 1e6:.1f} MB its own (the logits and "
+          f"what was held before it: {held_post / 1e6:.1f} MB)")
     for k, v in logits.items():
         if v.shape != MAIN_SHAPE or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{k}: shape {tuple(v.shape)} or non-finite")
+    post_stage_with_chain(stage_post, logits, labels)
     plain = make_infer_stages(model, cfg, plain=True)[2](logits)
     if not torch.equal(labels, plain):
         raise AssertionError(f"main path: kernels != twins on "
@@ -689,6 +853,42 @@ def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
     print("[4] K1-K3 == twins on the seeded-weights probabilities")
     print_kernel_times("4", "the seeded-weights probabilities", seeded)
     return seeded
+
+
+def post_stage_with_chain(stage_post, logits, labels) -> None:
+    """The warm post-processing stage once more with K1 on the chain of
+    whole-volume launches it had before (the seed module's body rule is
+    answered with "chain" for the time of the call; no config reaches
+    that), in turns with the tile pass: labels equal, time and the stage's
+    own peak device memory of each."""
+    import tpuseg_torch.ops.seed as seed_mod
+
+    rule = seed_mod.nms_body
+    held = torch.cuda.memory_allocated()
+    runs = {"tile pass": [], "chain": []}
+    try:
+        for body in ("chain", "tile pass", "tile pass", "chain"):
+            seed_mod.nms_body = ((lambda *a, **k: "chain") if body == "chain"
+                                 else rule)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = stage_post(logits)
+            torch.cuda.synchronize()
+            runs[body].append((1e3 * (time.perf_counter() - t0),
+                               (torch.cuda.max_memory_allocated() - held) / 1e6))
+            if not torch.equal(got, labels):
+                raise AssertionError(f"post-processing with K1 on the {body}: "
+                                     "other labels")
+            del got
+    finally:
+        seed_mod.nms_body = rule
+    print("[4] warm post-processing with K1 on the tile pass / on the chain, "
+          "two turns each: "
+          + "; ".join(f"{body}: {' / '.join(f'{ms:.1f}' for ms, _ in r)} ms, "
+                      f"the stage's own peak device memory "
+                      f"{' / '.join(f'{mb:.1f}' for _, mb in r)} MB"
+                      for body, r in runs.items()))
 
 
 def phase_analytic(sv):
@@ -947,6 +1147,73 @@ def phase_trained_quality(sv, tmp: str):
         if f1[tag] < 0.5:
             raise AssertionError(f"trained quality: {tag}: F1@IoU0.5 "
                                  f"{f1[tag]:.4f} < 0.5")
+    return ckpt_dir, vol_path, ann_path, f1["calibrated"]
+
+
+def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
+                        f1_floor: float, tmp: str):
+    """``cli.infer`` with phase 9's trained checkpoint on the 96x512x512
+    stack under the two inference configurations of the JAX package's
+    ``bench.py``, neither of which the default tile exercises: (a) the whole
+    volume as one tile (96, 512, 512) with no halo in float32 through the
+    module forward; (b) two tiles (96, 256, 512) with halo (0, 8, 0) in
+    bf16 through the fused eval apply (K4 on blocks of 96 x 272 x 512),
+    peak threshold 0.35. Both calibrated from the stack's weak annotations
+    (``--calibrate-from``), so that F1@IoU0.5 means something on
+    box-supervised masks: it must stay within 0.02 of phase 9's calibrated
+    figure. (b) must launch K4 3 x 2 times, all on the tensor cores; both
+    must launch K1-K3 and report convergence. Nothing is caught: a shape a
+    kernel or cuDNN cannot take fails the phase."""
+    from tpuseg_torch.cli import infer as cli_infer
+    from tpuseg_torch.eval import instance_metrics
+
+    configs = (
+        ("a: fp32, one tile (96,512,512), no halo, module forward", None,
+         ['infer.compute_dtype="float32"', "infer.tile=[96,512,512]",
+          "infer.halo=[0,0,0]"]),
+        ("b: bf16, tiles (96,256,512) + halo (0,8,0), fused apply, peak "
+         "threshold 0.35", 2,
+         ["infer.tile=[96,256,512]", "infer.halo=[0,8,0]",
+          'infer.apply_impl="fused"', "postproc.peak_threshold=0.35"]))
+    vox = int(np.prod(MAIN_SHAPE))
+    for tag, n_tiles, sets in configs:
+        out_path = os.path.join(tmp, f"labels_bench_{tag[0]}.npy")
+        argv = ["--checkpoint", ckpt_dir, "--input", vol_path, "--output",
+                out_path, "--report-convergence", "--calibrate-from", ann_path]
+        for kv in sets:
+            argv += ["--set", kv]
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        status = cli_infer.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, mma = _launches(), _mma_launches()["fused_convblock"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        labels = np.load(out_path)
+        m = instance_metrics(labels, sv.labels, iou_threshold=0.5)
+        print(f"[13] cli.infer, trained checkpoint, config {tag}: status "
+              f"{status} ({'flood truncated' if status == 4 else 'converged'}"
+              f"), wall {wall:.3f} s incl. load and save "
+              f"({vox / wall / 1e6:.2f} Mvox/s), {m['n_pred']} instances vs "
+              f"{m['n_gt']} GT, F1@IoU0.5 {m['f1']:.4f} (phase 9 calibrated: "
+              f"{f1_floor:.4f}), peak device memory {peak_gb:.2f} GB; kernel "
+              f"launches {launches}, {mma} of K4's by the tensor-core kernel")
+        if status not in (0, 4):
+            raise AssertionError(f"cli.infer (config {tag[0]}) returned "
+                                 f"{status}")
+        missing = [k for k in INFER_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"config {tag[0]} never launched {missing}")
+        want_k4 = 3 * n_tiles if n_tiles else 0
+        if launches["fused_convblock"] != want_k4 or mma != want_k4:
+            raise AssertionError(
+                f"config {tag[0]} launched K4 {launches['fused_convblock']} "
+                f"times ({mma} on the tensor cores), not {want_k4}")
+        if labels.shape != MAIN_SHAPE or m["f1"] < f1_floor - 0.02:
+            raise AssertionError(
+                f"config {tag[0]}: F1@IoU0.5 {m['f1']:.4f} is more than 0.02 "
+                f"below phase 9's calibrated {f1_floor:.4f}")
 
 
 def check_block(name, got, want, dtype) -> float:
@@ -1102,26 +1369,38 @@ def phase_nms(image: np.ndarray):
              ("ragged, radius 0 on z", pk_r, (0, 2, 1))]
     n_seeds = {}
     for tag, peak, radius in cases:
+        before = fused_peak_nms.tile_launches
         got = fused_peak_nms(peak, thr, radius)
         want = fused_peak_nms_plain(peak, thr, radius)
+        chain = fused_peak_nms(peak, thr, radius, body="chain")
         torch.cuda.synchronize()
+        if fused_peak_nms.tile_launches - before != 1:
+            raise AssertionError(f"fused_peak_nms ({tag}): radius {radius} "
+                                 "did not take the tile pass")
         if got.dtype != torch.bool or not torch.equal(got, want):
             raise AssertionError(f"fused_peak_nms ({tag}): kernel != twin on "
                                  f"{int((got != want).sum())} voxels")
+        if not torch.equal(chain, want):
+            raise AssertionError(f"fused_peak_nms ({tag}): chain body != twin")
         n_seeds[tag] = int(got.sum())
+    print(f"[11] {compare_tile_cases('nms')}")
     radius = cases[0][2]
-    ms = cuda_ms(lambda: fused_peak_nms(pk, thr, radius), 5)
+    ms = cuda_ms(lambda: fused_peak_nms(pk, thr, radius), 10)
+    chain_ms = cuda_ms(lambda: fused_peak_nms(pk, thr, radius, body="chain"),
+                       10)
     plain_ms = cuda_ms(lambda: fused_peak_nms_plain(pk, thr, radius), 2)
     lib_ms = cuda_ms(lambda: pool_nms(pk, thr, radius), 5)
     # must read 4 B and write 1 B per voxel; about 40 compares per voxel
     # (two separable 5-wide pools on three axes and the candidate tests)
     rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms,
+           "library_ms": lib_ms, "chain_ms": chain_ms,
            **bound(5 * pk.numel(), 40 * pk.numel(), F32_FLOPS)}
     print(f"[11] fused_peak_nms == twin elementwise: seeds {n_seeds}; at "
-          f"{MAIN_SHAPE} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+          f"{MAIN_SHAPE} kernel (one tile pass) {ms:.3f} ms, the chain in "
+          f"this run {chain_ms:.3f} ms, twin {plain_ms:.3f} ms, "
           f"F.max_pool3d NMS (no tie-break) {lib_ms:.3f} ms, bound "
-          f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}")
+          f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}; earlier: "
+          f"{EARLIER['fused_peak_nms']}")
     return rec
 
 
@@ -1271,8 +1550,11 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
         tmp, ckpt, vol_path, "nms", 'postproc.nms_impl="pallas"')
     print(f"[12] cli.infer, nms_impl=pallas: status {status}, "
           f"{int(labels.max())} instances; kernel launches {launches}")
-    if launches["fused_peak_nms"] == 0:
-        raise AssertionError("nms_impl='pallas' never launched K5")
+    k5_tiles = _tile_launches()["fused_peak_nms"]
+    if launches["fused_peak_nms"] == 0 or k5_tiles != launches["fused_peak_nms"]:
+        raise AssertionError(f"nms_impl='pallas' launched K5 "
+                             f"{launches['fused_peak_nms']} times, {k5_tiles} "
+                             "by the tile pass")
     if not np.array_equal(labels, default_labels):
         raise AssertionError(f"nms_impl='pallas' labels != default path on "
                              f"{int((labels != default_labels).sum())} voxels")
@@ -1304,8 +1586,9 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
     print(f"[12] warm post-processing ms by composition: {post_ms}")
     check_launches_per_pass(torch.sigmoid(logits["plain"]["fg_logits"]).float(),
                             torch.sigmoid(logits["plain"]["peak_logits"]).float())
-    return {"fused_convblock": k4_launches,
-            "fused_peak_nms": launches["fused_peak_nms"]}
+    return ({"fused_convblock": k4_launches,
+             "fused_peak_nms": launches["fused_peak_nms"]},
+            {"fused_peak_nms": k5_tiles})
 
 
 def _timed(label, fn, *args):
@@ -1323,6 +1606,8 @@ def main(argv=None):
     only = {int(p) for p in parser.parse_args(argv).phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
+    if 13 in only:
+        only.add(9)                     # phase 13 infers with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -1333,12 +1618,12 @@ def main(argv=None):
 
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
-    kernels, launches = {}, {}
+    kernels, launches, tile_launches = {}, {}, {}
     if want(3):
         kernels.update(_timed("phase 3", phase_kernels, sv.image))
     if want(4):
         with tempfile.TemporaryDirectory() as tmp:
-            launches, ckpt, cfg, default_labels = _timed(
+            launches, tile_launches, ckpt, cfg, default_labels = _timed(
                 "phase 4", phase_main_path, sv.image, tmp)
             seeded = _timed("phase 4 warm", phase_warm_stages, sv.image, ckpt,
                             cfg)
@@ -1356,23 +1641,32 @@ def main(argv=None):
         _timed("phase 8", phase_fused_vs_plain)
     if want(9):
         with tempfile.TemporaryDirectory() as tmp:
-            _timed("phase 9", phase_trained_quality, sv, tmp)
+            trained = _timed("phase 9", phase_trained_quality, sv, tmp)
+            if want(13):
+                _timed("phase 13", phase_bench_configs, sv, *trained, tmp)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
     if want(12):
         with tempfile.TemporaryDirectory() as tmp:
-            launches.update(_timed("phase 12", phase_fused_main_path,
-                                   sv.image, default_labels, tmp))
+            more, more_tiles = _timed("phase 12", phase_fused_main_path,
+                                      sv.image, default_labels, tmp)
+            launches.update(more)
+            tile_launches.update(more_tiles)
     if only:
         print(f"phases {sorted(only)} passed; run without --phases for the "
               "whole check and its record")
         return
 
     record = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
-               "replaces": KERNELS[k][1], "launches": launches[k], **r}
+               "replaces": KERNELS[k][1], "launches": launches[k],
+               **({"tile_launches": tile_launches[k]}
+                  if k in tile_launches else {}), **r}
               for k, r in kernels.items()]
+    for k, n in tile_launches.items():
+        if n == 0:
+            raise AssertionError(f"main path: {k} never took the tile pass")
     if sorted(r["name"] for r in record) != sorted(KERNELS):
         raise AssertionError(f"kernel record incomplete: {record}")
     print(json.dumps({"kernels": record}))

@@ -23,6 +23,8 @@ from tpuseg.ops.watershed import steepest_dir_codes as ref_dir_codes
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve,
                                       chase_resolve_plain, flood_resolve,
                                       flood_resolve_plain)
+from tpuseg_torch.ops.nms_cases import (CHAIN_RADII, SMALL_SHAPE, THRESHOLD,
+                                        TILE_RADII, adversarial_maps)
 from tpuseg_torch.ops.seed import seed_chase_pass, seed_chase_pass_plain
 
 from test_torch_model import single_torch_thread  # noqa: F401
@@ -134,11 +136,47 @@ def test_seed_twin_ragged_shape_matches_xla(h0):
     np.testing.assert_array_equal(v.numpy(), np.asarray(v_r))
 
 
+@pytest.mark.parametrize("radius", TILE_RADII + CHAIN_RADII)
+@pytest.mark.parametrize("shape", [(6, 70, 140), SMALL_SHAPE])
+def test_seed_twin_adversarial_maps_match_xla(shape, radius):
+    """The inputs a tiled seed pass can get wrong (the CUDA kernel's tile is
+    (32, 32) in (y, x)): a constant map, plateaus across every tile edge
+    with the foreground cutting through them, values at the threshold;
+    mixed per-axis radii with 0 and 3-4, rz >= D at the small shape, radii
+    above the tile pass's limit. dirs and v both, against the unfused XLA
+    composition (no Pallas block takes these shapes)."""
+    for name, peak, fgp in adversarial_maps(shape, seed=6):
+        dirs_r, v0 = _ref_v0(peak, fgp, THRESHOLD, 0.5, radius)
+        v_r = _ref_chase_steps(v0, dirs_r, 8)
+        dirs, v = seed_chase_pass(_t(peak), _t(fgp), THRESHOLD, 0.5, radius)
+        np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_r), name)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_r), name)
+        if name == "constant" and min(radius) > 0:
+            # one seed, at the largest linear index: the only positive root
+            assert (np.asarray(v0) > 0).sum() == 1
+            assert np.asarray(v0).flat[-1] == v0.size
+
+
+@pytest.mark.parametrize("radius", [(2, 2, 2), (0, 2, 1)])
+def test_seed_twin_adversarial_maps_match_pallas(radius):
+    """The same maps through the TPU kernel in interpret mode, at a shape its
+    blocks divide."""
+    shape = (16, 32, 128)
+    for name, peak, fgp in adversarial_maps(shape, seed=7):
+        dirs_r, v_r = ref_seed_chase_pass(
+            jnp.asarray(peak), jnp.asarray(fgp), THRESHOLD, 0.5, radius, h0=8,
+            block=(8, 16), interpret=True)
+        dirs, v = seed_chase_pass(_t(peak), _t(fgp), THRESHOLD, 0.5, radius)
+        np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_r), name)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_r), name)
+
+
 def test_seed_wrapper_takes_twin_on_cpu():
     peak, fgp = _peak_fg(seed=1)
     a = seed_chase_pass(_t(peak), _t(fgp), 0.4, 0.35)
     b = seed_chase_pass_plain(_t(peak), _t(fgp), 0.4, 0.35)
     assert seed_chase_pass.launches == 0           # no kernel on the CPU
+    assert seed_chase_pass.tile_launches == 0
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

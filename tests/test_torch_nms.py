@@ -19,6 +19,9 @@ from tpuseg.ops.peaks import peak_nms as ref_peak_nms
 from tpuseg.ops.watershed import watershed as ref_watershed
 from tpuseg_torch.ops import peak_nms, watershed
 from tpuseg_torch.ops.nms import fused_peak_nms, fused_peak_nms_plain
+from tpuseg_torch.ops.nms_cases import (CHAIN_RADII, SMALL_SHAPE, THRESHOLD,
+                                        TILE_RADII, adversarial_maps,
+                                        expected_constant_seeds)
 
 from test_torch_model import single_torch_thread  # noqa: F401
 from test_torch_ops import _maps
@@ -68,6 +71,40 @@ def test_fused_peak_nms_takes_shapes_the_tpu_kernel_falls_back_on():
 def test_fused_peak_nms_twin_is_the_plain_nms():
     assert fused_peak_nms_plain is peak_nms
     assert fused_peak_nms.launches == 0         # no kernel for a CPU tensor
+    assert fused_peak_nms.tile_launches == 0
+
+
+# the inputs a tiled NMS can get wrong (the CUDA kernel's tile is (32, 32) in
+# (y, x) with a 2r halo): the twin the kernel is held to on the card must
+# itself equal the JAX package there. (6, 70, 140) is wider than one tile on
+# both axes; SMALL_SHAPE is below one, with rz >= D.
+
+
+@pytest.mark.parametrize("radius", TILE_RADII + CHAIN_RADII)
+@pytest.mark.parametrize("shape", [(6, 70, 140), SMALL_SHAPE])
+def test_fused_peak_nms_adversarial_maps_match_xla(shape, radius):
+    for name, peak, _ in adversarial_maps(shape, seed=4):
+        want = np.asarray(ref_peak_nms(jnp.asarray(peak), THRESHOLD, radius))
+        got = fused_peak_nms(torch.from_numpy(peak), THRESHOLD, radius)
+        assert np.array_equal(got.numpy(), want), name
+        if name == "constant":
+            assert np.array_equal(want, expected_constant_seeds(shape, radius))
+            assert want.sum() == 1 or min(radius) == 0
+        else:
+            assert 0 < want.sum() < want.size, name
+
+
+@pytest.mark.parametrize("radius", [(2, 2, 2), (1, 2, 2), (3, 1, 4)])
+def test_fused_peak_nms_adversarial_maps_match_pallas(radius):
+    """The same maps through the TPU kernel in interpret mode, at a shape its
+    (8, 64) blocks divide and the CUDA tile does not."""
+    shape = (8, 128, 40)
+    with pltpu.force_tpu_interpret_mode():
+        for name, peak, _ in adversarial_maps(shape, seed=5):
+            want = np.asarray(pallas_peak_nms(jnp.asarray(peak), THRESHOLD,
+                                              radius))
+            got = fused_peak_nms(torch.from_numpy(peak), THRESHOLD, radius)
+            assert np.array_equal(got.numpy(), want), name
 
 
 KW = dict(peak_threshold=0.5, fg_threshold=0.4, flood_iters=48)

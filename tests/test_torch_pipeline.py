@@ -196,3 +196,31 @@ def test_unported_config_raises(key, value):
     with pytest.raises(exc, match=match):
         make_infer_fn(UNet3D(PortModelConfig(features=(4, 8), head_features=4)),
                       cfg)
+
+
+def test_unknown_program_raises_as_in_reference(volume):
+    """``infer.program`` outside {"fused", "staged"}: ValueError with the
+    reference's wording, in both packages."""
+    cfg = _cfg(program="bogus")
+    with pytest.raises(ValueError, match="unknown InferConfig.program 'bogus'"):
+        ref_make_infer_fn(RefAnalyticNet(), cfg)
+    with pytest.raises(ValueError, match="unknown InferConfig.program 'bogus'"):
+        make_infer_fn(AnalyticNet(), _port_cfg(cfg))
+    with pytest.raises(ValueError, match="unknown InferConfig.program"):
+        make_infer_stages(AnalyticNet(), PortConfig().override(
+            **{"infer.program": "Fused"}))
+
+
+@pytest.mark.parametrize("with_diagnostics", [False, True])
+def test_fused_and_staged_programs_give_identical_labels(volume,
+                                                         with_diagnostics):
+    """Both accepted values name one computation in the port."""
+    vol = torch.from_numpy(volume.image)
+    out = [make_infer_fn(AnalyticNet(), _port_cfg(_cfg(program=program)),
+                         with_diagnostics=with_diagnostics)(vol)
+           for program in ("fused", "staged")]
+    if with_diagnostics:
+        assert out[0][1] == out[1][1]
+        out = [o[0] for o in out]
+    assert int(out[0].max()) >= 5
+    assert torch.equal(out[0], out[1])

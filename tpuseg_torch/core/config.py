@@ -143,8 +143,9 @@ class InferConfig:
                                 # "fused" (the fused full-res ConvBlock
                                 # kernel, models/fused_eval.py — same
                                 # function up to bf16 reassociation)
-    program: str = "fused"      # the JAX package's XLA program structure;
-                                # read and ignored (infer/pipeline.py)
+    program: str = "fused"      # the JAX package's XLA program structure:
+                                # "fused" | "staged", checked, then the same
+                                # computation (infer/pipeline.py)
     spatial_axes: Tuple[str, ...] = ("z",)        # mesh axes for sharded inference
     shard_halo: int = 32        # post-proc halo planes exchanged between shards
     shard_max_labels: int = 4096  # per-shard distinct-instance cap for the

@@ -36,21 +36,6 @@ inline dim3 volume_grid(int D, int H, int W) {
   return dim3((W + kThreads - 1) / kThreads, H, D);
 }
 
-// Linear index of neighbour `code` (1..6) of voxel i = (z*H + y)*W + x, or -1
-// outside the volume.
-__device__ __forceinline__ int neighbor(int code, int i, int z, int y, int x,
-                                        int D, int H, int W) {
-  switch (code) {
-    case 1: return z + 1 < D ? i + H * W : -1;
-    case 2: return z > 0 ? i - H * W : -1;
-    case 3: return y + 1 < H ? i + W : -1;
-    case 4: return y > 0 ? i - W : -1;
-    case 5: return x + 1 < W ? i + 1 : -1;
-    case 6: return x > 0 ? i - 1 : -1;
-    default: return -1;
-  }
-}
-
 // out[i] = in[p^iters(i)]: the result of `iters` lockstep chase steps. A walk
 // ends early at a code outside 1..6 (0 = self: a fixed point) and yields 0 as
 // soon as a hop leaves the volume (the Pallas kernel's zero pad: padded

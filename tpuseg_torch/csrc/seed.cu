@@ -1,31 +1,40 @@
 // K1: watershed seeding on the H100.
 //
-// Replaces tpuseg/ops/pallas_seed.py:seed_chase_pass (_seed_kernel). Same
-// result, as a chain of whole-volume launches instead of one VMEM window:
+// Replaces tpuseg/ops/pallas_seed.py:seed_chase_pass (_seed_kernel):
 //
-//   mx    = (2r+1)^3 max-pool of peak, -inf outside   (3 separable launches)
-//   cidx  = lin where peak >= thr and peak >= mx, else -1
-//   midx  = (2r+1)^3 max-pool of cidx, -1 outside     (3 separable launches)
-//   seeds = cidx >= 0 & cidx == midx & fg,  fg = fg_prob >= fg_thr
+//   fg    = fg_prob >= fg_thr
+//   seeds = peak-NMS seeds (nms.cuh) & fg
 //   dirs  = steepest ascent over (peak on fg, lin), 0 at seeds and off fg
 //   v0    = +(lin+1) at seeded roots, -(lin+1) at unseeded roots, 0 elsewhere
 //   v     = h0 lockstep chase steps (the K2 walk kernel: one launch)
 //
-// The candidate steps (mx, cidx, midx) are nms.cuh's, shared with the
-// peak-NMS kernel (nms.cu).
+// Two launches: nms.cuh's tile pass with DIRS set, which writes dirs and v0,
+// and the walk from v0 into v. The tile pass holds everything between the
+// peak map and the seeds on chip (the NMS cone: a halo of 2r, see nms.cuh
+// for why r is not enough); the thread that learns a core voxel's seed
+// status takes its ascent step on the spot, reading the two maps at the
+// voxel and its six neighbours through L1/L2 (the chain's direction launch
+// showed that these reads cost little), and writes dirs and v0. The TPU
+// kernel's (8, 64) blocks, padded copy and static crop are not carried over:
+// window entries outside the volume are filled by coordinate.
 //
-// Bound: memory. Each pooling launch reads 4 bytes per voxel (the 2r window
-// along the axis comes from cache) and writes 4; the seed/dirs launch reads
-// peak and fg at 7 points (mostly cached) plus cidx/midx and writes 8. About
-// 14 whole-volume passes of ~8 bytes per voxel plus one chase walk of ~12:
-// at least ~1 ms over 96x512x512 at 3.35 TB/s, against 0.12 ms for the bytes
-// the function must move. The pooling chain is what is left to fuse.
+// Radii above nms.cuh's kTileMaxR take the chain of whole-volume launches
+// instead (tpuseg_seed_chase_chain: the pooling chain, seed_dirs_kernel and
+// the walk, through five volume-sized scratch buffers); the wrapper decides
+// from the radius before any launch.
+//
+// Bound: memory. The function must move 16 bytes per voxel (two float32 maps
+// in, two int32 volumes out). The tile pass reads peak ~1.6x for the pool
+// and once more, with fg_prob, for the ascent step (mostly from L2), and
+// writes dirs and v0; the walk reads both and writes v: about 36 bytes per
+// voxel against the chain's ~120. The walk stays a launch of its own, so K1
+// cannot come within 2x of its bound.
 #include "nms.cuh"
 
 namespace tpuseg {
 namespace {
 
-// Seeds, steepest-ascent direction codes and the signed root payload v0.
+// The chain's last step: seeds, direction codes and the signed payload v0.
 __global__ void seed_dirs_kernel(const float* __restrict__ peak,
                                  const float* __restrict__ fgp,
                                  const int* __restrict__ cidx,
@@ -42,20 +51,8 @@ __global__ void seed_dirs_kernel(const float* __restrict__ peak,
   const bool seed = fg && ci >= 0 && ci == midx[i];
   int code = 0;
   if (fg && !seed) {
-    // argmax over {self} U 6 neighbours of (potential, lin), potential
-    // -inf off the foreground — watershed.steepest_dir_codes
-    float best_pot = peak[i];
-    int best_idx = i;
-    for (int c = 1; c <= 6; ++c) {
-      const int j = neighbor(c, i, z, y, x, D, H, W);
-      if (j < 0) continue;
-      const float np = fgp[j] >= fg_thr ? peak[j] : -CUDART_INF_F;
-      if (np > best_pot || (np == best_pot && j > best_idx)) {
-        best_pot = np;
-        best_idx = j;
-        code = c;
-      }
-    }
+    const bool has[6] = {z + 1 < D, z > 0, y + 1 < H, y > 0, x + 1 < W, x > 0};
+    code = ascent_code(peak, fgp, fg_thr, i, H * W, W, has);
   }
   dirs[i] = code;
   v0[i] = (fg && code == 0) ? (seed ? i + 1 : -(i + 1)) : 0;
@@ -66,14 +63,30 @@ __global__ void seed_dirs_kernel(const float* __restrict__ peak,
 
 using namespace tpuseg;
 
-// (dirs, v) of pallas_seed.seed_chase_pass. Scratch: f0, f1 (float, volume
-// sized) and cidx, i0, i1 (int, volume sized). The result v lands in v_out.
+// (dirs, v) of pallas_seed.seed_chase_pass by the tile pass; every radius
+// <= tpuseg_nms_tile_max_radius(). v0 is volume-sized scratch, the result v
+// lands in v_out. `zchunks`: 0, or the number of z chunks (for tuning).
 extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
                                  float peak_thr, float fg_thr, int rz, int ry,
-                                 int rx, int h0, int D, int H, int W,
-                                 float* f0, float* f1, int* cidx, int* i0,
-                                 int* i1, int* dirs, int* v_out,
+                                 int rx, int h0, int zchunks, int D, int H,
+                                 int W, int* v0, int* dirs, int* v_out,
                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_nms_tile<true>(
+      peak, fgp, peak_thr, fg_thr, rz, ry, rx, zchunks, D, H, W, nullptr,
+      dirs, v0, s);
+  if (err != cudaSuccess) return err;
+  return run_chase(v0, dirs, v_out, nullptr, nullptr, h0, D, H, W, s);
+}
+
+// The same by the chain, for any radius. Scratch: f0, f1 (float, volume
+// sized) and cidx, i0, i1 (int, volume sized).
+extern "C" int tpuseg_seed_chase_chain(const float* peak, const float* fgp,
+                                       float peak_thr, float fg_thr, int rz,
+                                       int ry, int rx, int h0, int D, int H,
+                                       int W, float* f0, float* f1, int* cidx,
+                                       int* i0, int* i1, int* dirs,
+                                       int* v_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = volume_grid(D, H, W);
   const int radius[3] = {rz, ry, rx};

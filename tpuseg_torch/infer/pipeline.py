@@ -13,8 +13,8 @@ full-resolution ConvBlocks on the K4 kernel).
 
 PyTorch runs eagerly, so there is no ``jit``, no ``bind_variables`` and no
 staged program: those exist to shape XLA programs on a TPU.
-``InferConfig.program`` ("fused" / "staged") is read and ignored for that
-reason — both name the same computation.
+``InferConfig.program`` ("fused" / "staged") is checked, then both name the
+same computation; any other value raises ``ValueError`` as in the reference.
 """
 
 from __future__ import annotations
@@ -82,6 +82,8 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
         apply_fn = model
     else:
         raise ValueError(f"unknown apply_impl {cfg.infer.apply_impl!r}")
+    if cfg.infer.program not in ("fused", "staged"):
+        raise ValueError(f"unknown InferConfig.program {cfg.infer.program!r}")
     compute_dtype = resolve(cfg.infer.compute_dtype)
     # float32 convolutions in full float32: cuDNN would take TF32 by default
     torch.backends.cudnn.allow_tf32 = False

@@ -32,8 +32,10 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu's entry points; every pointer and the stream are
 # void* so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "tpuseg_seed_chase": [_P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P, _P],
+    "tpuseg_seed_chase": [_P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P],
+    "tpuseg_seed_chase_chain": [_P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _P, _P, _P, _P, _P, _P],
     "tpuseg_chase_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tpuseg_flood_steps_per_launch": [],
     "tpuseg_flood_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -43,8 +45,12 @@ SIGNATURES = {
                          _P],
     "tpuseg_convblock_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P],
-    "tpuseg_peak_nms": [_P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                        _P, _P],
+    "tpuseg_peak_nms": [_P, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tpuseg_peak_nms_chain": [_P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P, _P],
+    "tpuseg_nms_tile_max_radius": [],
+    "tpuseg_nms_tile_smem": [_I, _I],
+    "tpuseg_smem_optin": [],
 }
 
 
@@ -115,6 +121,15 @@ def build_log() -> str:
     kernel) from the build :func:`load` made or found."""
     log = build_dir() / "build.log"
     return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def smem_optin() -> int:
+    """``cudaDevAttrMaxSharedMemoryPerBlockOptin`` of the current device: the
+    dynamic shared memory a block may opt in to (232,448 bytes on an H100)."""
+    n = load().tpuseg_smem_optin()
+    check(max(-n, 0), "cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin)")
+    return n
 
 
 def stream_ptr() -> int:
