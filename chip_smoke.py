@@ -91,13 +91,42 @@ Phases, in order; any failure raises and exits non-zero:
     apply with peak threshold 0.35, both calibrated: K4 launched 3 x 2
     times on the tensor cores in the second, K1-K3 above 0 and convergence
     reported in both, F1@IoU0.5 within 0.02 of phase 9's calibrated figure;
-    wall time, Mvox/s, instances, F1 and peak device memory of each.
+    wall time, Mvox/s, instances, F1 and peak device memory of each;
+14. (run after phase 9, with its checkpoint) the streamed path on a
+    360x1024x1024 stack of 9000 nuclei (four z-chunks of 96, the last 72;
+    (360, 512, 512) with 2250 nuclei on a host with under 32 GB free),
+    with the synthesis time and the host's free memory: (a) AnalyticNet in
+    float32, ``stream_infer(chunk_z=96)`` at the default halo equal to the
+    one-shot ``make_infer_fn`` elementwise under default post-processing,
+    ``merge_saddle_ratio=0.8`` and ``nms_impl="pallas"`` (K5
+    launched); a run killed after chunk 1 and resumed into a memmap equal
+    to the uninterrupted one; a uint16 source equal to its float32 values;
+    (b) phase 9's trained U-Net through ``cli.infer --stream 96
+    --report-convergence --validate --calibrate-from`` with the fused apply
+    beside the one-shot ``cli.infer`` with the same flags: wall time,
+    Mvox/s, stage seconds, peak device memory, instances and F1@IoU0.5 of
+    both (the streamed one at most 0.02 below), F1 between the two, chase
+    and flood passes per chunk; validation must pass, K1-K3 launch at
+    least once a chunk, K4 exactly 3 x tiles per extended chunk x chunks x
+    2 times on the tensor cores; the same stream at the threshold pass 1b
+    found, with the copies overlapped and in sequence, in turns (the labels
+    equal the call's); then the first 180 planes stream the same way, and
+    the stream's own peak device memory, and the whole call's with the
+    validation by chunks, must be within 10% of the 360-plane stream's;
+    (c) the first 180 planes calibrated from all the stack's nuclei (the
+    input on which ``--validate`` first failed): the one-shot labels
+    connected, streams at halo 32 and 56 with every chunk's watershed held
+    against the twins (K1-K3 and K5 at the extended chunks' shapes), their
+    validation printed and each label in more than one piece located
+    against the seam and beside its one-shot instance.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it and 13 brings 9). Without arguments every phase runs; the
-second-to-last lines are then the kernels' JSON record (with each kernel's
-bound: the larger of its bytes over the card's memory rate and its
-operations over the card's peak rate, from this run's shapes) and
+alone; no final record; 12 brings 4 with it, 13 and 14 bring 9). Without
+arguments every phase runs; the second-to-last lines are then the kernels'
+JSON record (with each kernel's launches on the main path and on the
+streamed path of phase 14, and its bound: the larger of its bytes over the
+card's memory rate and its operations over the card's peak rate, from this
+run's shapes) and
 nvidia-smi's ``name, power.limit``; the last line is
 ``{"ok": true, "device": ...}``.
 """
@@ -181,6 +210,13 @@ CHAIN_KERNELS = ("maxpool_axis_kernel", "candidate_index_kernel",
 TRAIN_KERNELS = INFER_KERNELS + ("conv3x3_raw",)   # validation infers
 TRAIN_STEPS, RESUME_STEPS = 20, 24       # the train main path, then a resume
 QUALITY_STEPS = 200                      # bench.py's trained-weights recipe
+# the streamed path: four z-chunks of 96 (the last 72) at the main stack's
+# nucleus density; a host with less free memory takes the cut
+STREAM_SHAPE, STREAM_INSTANCES = (360, 1024, 1024), 9000
+STREAM_CUT, STREAM_CUT_INSTANCES = (360, 512, 512), 2250
+STREAM_MIN_FREE_GB = 32
+STREAM_CHUNK = 96
+STREAM_KERNELS = INFER_KERNELS + ("fused_convblock", "fused_peak_nms")
 
 
 class AnalyticNet(nn.Module):
@@ -1216,6 +1252,530 @@ def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
                 f"below phase 9's calibrated {f1_floor:.4f}")
 
 
+def free_host_gb() -> float:
+    """The host's available memory (``MemAvailable``) in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def f1_iou50_on_card(pred: np.ndarray, gt: np.ndarray) -> dict:
+    """F1@IoU0.5 between two label volumes, from their contingency on the
+    card (``instance_metrics``' numpy sorts take minutes at 10^8-10^9
+    voxels). Pairs at IoU >= 0.5 are a one-to-one matching by themselves,
+    so ``tp`` is their count, as in ``instance_metrics``."""
+    p = torch.from_numpy(np.asarray(pred)).cuda().long().reshape(-1)
+    g = torch.from_numpy(np.asarray(gt)).cuda().long().reshape(-1)
+    n_g = int(g.max()) + 1
+    p_area = torch.bincount(p)
+    g_area = torch.bincount(g, minlength=n_g)
+    both = (p > 0) & (g > 0)
+    pairs, inter = torch.unique(p[both] * n_g + g[both], return_counts=True)
+    pi, gi = pairs // n_g, pairs % n_g
+    iou = inter.double() / (p_area[pi] + g_area[gi] - inter).double()
+    tp = int((iou >= 0.5).sum())
+    n_pred = int((p_area[1:] > 0).sum())
+    n_gt = int((g_area[1:] > 0).sum())
+    del p, g, both
+    torch.cuda.empty_cache()
+    return {"f1": 2 * tp / (n_pred + n_gt) if n_pred + n_gt else 0.0,
+            "tp": tp, "n_pred": n_pred, "n_gt": n_gt}
+
+
+class ChunkPasses:
+    """Chase and flood passes per chunk of a stream: the streaming module's
+    watershed is wrapped for the time of the ``with``, and each call's K2
+    and K3 launches are kept."""
+
+    def __enter__(self):
+        from tpuseg_torch.infer import streaming
+        from tpuseg_torch.ops import chase_pass, flood_pass
+
+        self.module, self.orig, self.passes = streaming, streaming.watershed, []
+
+        def counted(*args, **kwargs):
+            c0, f0 = chase_pass.launches, flood_pass.launches
+            out = self.orig(*args, **kwargs)
+            self.passes.append((chase_pass.launches - c0,
+                                flood_pass.launches - f0))
+            return out
+
+        streaming.watershed = counted
+        return self.passes
+
+    def __exit__(self, *exc):
+        self.module.watershed = self.orig
+
+
+class ChunkTwinCheck:
+    """Every chunk of a stream held against the twins at the chunk's own
+    shape: the streaming module's watershed is wrapped for the time of the
+    ``with``; each call runs once more with ``plain=True`` on the same maps
+    (K1-K3, or K5 under ``nms_impl="pallas"``, against their twins) and
+    must give equal labels, and K5 is held against its twin on the chunk's
+    peak map at the call's threshold and radius. Keeps each checked
+    chunk's shape and instance count."""
+
+    def __enter__(self):
+        from tpuseg_torch.infer import streaming
+        from tpuseg_torch.ops.nms import fused_peak_nms, fused_peak_nms_plain
+
+        self.module, self.orig, self.checked = streaming, streaming.watershed, []
+
+        def checked(fg, pk, **kw):
+            got = self.orig(fg, pk, **kw)
+            want = self.orig(fg, pk, **kw, plain=True)
+            thr, radius = kw["peak_threshold"], kw["peak_radius"]
+            seeds = fused_peak_nms(pk, thr, radius)
+            seeds_plain = fused_peak_nms_plain(pk, thr, radius)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"chunk {tuple(fg.shape)}: watershed kernels != twins on "
+                    f"{int((got != want).sum())} voxels")
+            if not torch.equal(seeds, seeds_plain):
+                raise AssertionError(f"chunk {tuple(fg.shape)}: K5 != twin")
+            self.checked.append((tuple(fg.shape),
+                                 int(torch.unique(got[got > 0]).numel())))
+            del want, seeds, seeds_plain
+            return got
+
+        streaming.watershed = checked
+        return self.checked
+
+    def __exit__(self, *exc):
+        self.module.watershed = self.orig
+
+
+def split_labels(labels: np.ndarray, one_shot: np.ndarray, seams,
+                 most: int = 4):
+    """The labels of a volume that lie in more than one 6-connected piece:
+    their number, and for the first ``most`` each piece's voxels and z
+    range and the seams (first planes of a chunk) it reaches from either
+    side, with the z range of the one-shot instance that holds most of the
+    label."""
+    from tpuseg_torch.ops import label_components
+
+    lab = torch.from_numpy(labels).cuda()
+    comps = label_components(lab).long()
+    fg = lab > 0
+    pairs = torch.unique(lab[fg].long() * 2 ** 32 + comps[fg])
+    ids, n = torch.unique(pairs >> 32, return_counts=True)
+    split = ids[n > 1]
+    one = torch.from_numpy(one_shot).cuda()
+    found = []
+    for label in split[:most].tolist():
+        z, y, x = torch.nonzero(lab == label, as_tuple=True)
+        c = comps[z, y, x]
+        pieces = []
+        for cid in torch.unique(c).tolist():
+            zz = z[c == cid]
+            pieces.append({"voxels": int(zz.numel()),
+                           "z": (int(zz.min()), int(zz.max())),
+                           "seams": [s for s in seams if bool(
+                               ((zz == s - 1) | (zz == s)).any())]})
+        host = one[z, y, x]
+        host = host[host > 0]
+        extent = None
+        if host.numel():
+            inst = int(torch.mode(host).values)
+            zi = torch.nonzero(one == inst, as_tuple=True)[0]
+            extent = (inst, int(zi.min()), int(zi.max()))
+        found.append({"label": label, "pieces": pieces,
+                      "one_shot_instance_z": extent})
+    n_split = int(split.numel())
+    del lab, comps, fg, one
+    torch.cuda.empty_cache()
+    return n_split, found
+
+
+def _run_cli_captured(argv):
+    """``cli.infer.main(argv)`` with its standard output echoed and kept:
+    ``(status, wall s, printed text)``."""
+    import contextlib
+    import io
+
+    from tpuseg_torch.cli import infer as cli_infer
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        status = cli_infer.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print("".join(f"       | {line}\n" for line in buf.getvalue().splitlines()),
+          end="")
+    return status, wall, buf.getvalue()
+
+
+def _stream_stats(printed: str) -> dict:
+    for line in printed.splitlines():
+        if line.startswith("stream stats: "):
+            return json.loads(line[len("stream stats: "):])
+    raise AssertionError("cli.infer --stream printed no stream stats")
+
+
+def phase_stream_analytic(sv, tmp: str) -> dict:
+    """(a) The streamed path with AnalyticNet (receptive field 0) under the
+    default InferConfig in float32 (in bf16 the stream takes its sigmoid in
+    float32, the one-shot path in bf16, as in the JAX package):
+    ``stream_infer(chunk_z=96)`` at the default halo (``infer.shard_halo``)
+    equals the one-shot ``make_infer_fn`` elementwise under default
+    post-processing, ``merge_saddle_ratio=0.8`` and
+    ``nms_impl="pallas"``; a run killed after chunk 1 and resumed into a
+    memmap equals the uninterrupted run; a uint16 source equals its float32
+    values. Returns the launches of the pallas stream (K5)."""
+    import dataclasses
+
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.infer import make_infer_fn, stream_infer
+
+    model = AnalyticNet().cuda()
+    vox = sv.image.size
+    base = Config(infer=InferConfig(compute_dtype="float32"))
+    settings = (("default", {}), ("merge_saddle_ratio=0.8",
+                                  {"merge_saddle_ratio": 0.8}),
+                ('nms_impl="pallas"', {"nms_impl": "pallas"}))
+    default_labels, k5_launches = None, 0
+    for tag, post in settings:
+        cfg = dataclasses.replace(base, postproc=dataclasses.replace(
+            base.postproc, **post))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        want = make_infer_fn(model, cfg)(
+            torch.from_numpy(sv.image).cuda()).cpu().numpy()
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        _reset_launches()
+        stats = {}
+        t0 = time.perf_counter()
+        got = stream_infer(model, cfg, sv.image, chunk_z=STREAM_CHUNK,
+                           stats=stats)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        same = np.array_equal(got, want)
+        print(f"[14a] AnalyticNet, {tag}: streamed "
+              f"{'==' if same else '!='} one-shot elementwise "
+              f"({int(want.max())} instances); stream {wall:.3f} s "
+              f"({vox / wall / 1e6:.2f} Mvox/s; stages "
+              + ", ".join(f"{k} {stats[k]:.3f} s" for k in (
+                  "t_normalize_pass", "t_calibrate_pass", "t_chunks",
+                  "t_finalize"))
+              + f"), peak device memory "
+              f"{stats['peak_device_bytes'] / 1e9:.2f} GB; one-shot "
+              f"{one_s:.3f} s, peak {one_peak:.2f} GB; kernel launches "
+              f"{launches}")
+        if not same:
+            raise AssertionError(f"[14a] {tag}: streamed != one-shot on "
+                                 f"{int((got != want).sum())} voxels")
+        del got
+        if tag == "default":
+            default_labels = want
+        else:
+            if tag.startswith("nms"):
+                k5_launches = launches["fused_peak_nms"]
+                if not k5_launches or not np.array_equal(want,
+                                                         default_labels):
+                    raise AssertionError("[14a] nms_impl=pallas: K5 not "
+                                         "launched or labels != default")
+            del want
+
+    # killed after chunk 1, resumed into a memmap
+    class Killed(Exception):
+        pass
+
+    def killer(ci):
+        if ci >= 1:
+            raise Killed()
+
+    rdir = os.path.join(tmp, "stream_resume")
+    out = np.lib.format.open_memmap(os.path.join(tmp, "stream_resume.npy"),
+                                    mode="w+", dtype=np.int32,
+                                    shape=sv.image.shape)
+    try:
+        stream_infer(model, base, sv.image, out=out, chunk_z=STREAM_CHUNK,
+                     resume_dir=rdir, on_chunk_done=killer)
+        raise AssertionError("[14a] the killed stream was not killed")
+    except Killed:
+        pass
+    resumed_at = []
+    got = stream_infer(model, base, sv.image, out=out, chunk_z=STREAM_CHUNK,
+                       resume_dir=rdir, on_chunk_done=resumed_at.append)
+    same = np.array_equal(got, default_labels)
+    print(f"[14a] killed after chunk 1, resumed at chunk {resumed_at[0]} into "
+          f"an np.memmap: {'==' if same else '!='} the uninterrupted run")
+    if not same or resumed_at[0] != 2:
+        raise AssertionError("[14a] kill and resume")
+    del got, out
+
+    # a uint16 source uploads at 2 bytes a voxel and is cast on the card
+    probe = torch.arange(0, 65536, 4099, dtype=torch.int32)
+    on_card = probe.to(torch.uint16).cuda().float().cpu()
+    print(f"[14a] torch.uint16 -> float32 on the card: "
+          f"{'exact' if torch.equal(on_card, probe.float()) else 'WRONG'}")
+    cut = (sv.image[:STREAM_CHUNK + 8, :256, :256] * 65535).astype(np.uint16)
+    a = stream_infer(model, base, cut, chunk_z=STREAM_CHUNK // 2)
+    b = stream_infer(model, base, cut.astype(np.float32),
+                     chunk_z=STREAM_CHUNK // 2)
+    if not torch.equal(on_card, probe.float()) or not np.array_equal(a, b):
+        raise AssertionError("[14a] uint16 source != float32 source")
+    print(f"[14a] uint16 source {cut.shape} == its float32 values "
+          f"({int(a.max())} instances)")
+    return {"fused_peak_nms": k5_launches}
+
+
+def phase_stream_trained(sv, ckpt_dir: str, tmp: str) -> dict:
+    """(b) The trained full-width U-Net (phase 9's checkpoint) through the
+    entry point: ``cli.infer --stream 96 --report-convergence --validate
+    --calibrate-from`` with ``infer.apply_impl="fused"``, beside the
+    one-shot ``cli.infer`` with the same flags. The streamed F1@IoU0.5 may
+    be at most 0.02 below the one-shot's (the net's receptive-field radius,
+    53, exceeds the halo of 32); K1-K3 launch at least once a chunk, K4
+    exactly 3 x tiles per extended chunk x chunks x 2 (passes 1b and 2),
+    all on the tensor cores. The same stream at the threshold pass 1b
+    found runs with the copies overlapped and in sequence, in turns, and
+    must give the call's labels. Then the first 180 planes stream the same
+    way: the stream's own peak device memory, and the whole call's with
+    the validation by chunks, must be within 10% of the full run's.
+    Returns the streamed run's launches."""
+    from tpuseg_torch.cli.infer import calibrated
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.data import save_annotations
+    from tpuseg_torch.infer import stream_infer
+    from tpuseg_torch.infer.tiles import tile_grid
+
+    vol_path = os.path.join(tmp, "stream_volume.npy")
+    ann_path = os.path.join(tmp, "stream_annotations.npz")
+    np.save(vol_path, sv.image)
+    save_annotations(ann_path, sv.centers, sv.half_sizes)
+    D, H, W = sv.image.shape
+    vox = sv.image.size
+    cfg = Config()
+    n_chunks = -(-D // STREAM_CHUNK)
+    ext_shape = (STREAM_CHUNK + 2 * cfg.infer.shard_halo, H, W)
+    tiles = len(tile_grid(ext_shape, cfg.infer.tile))
+    want_k4 = 3 * tiles * n_chunks * 2
+
+    def argv(path, ann, out, *extra):
+        return ["--checkpoint", ckpt_dir, "--input", path, "--output", out,
+                "--report-convergence", "--validate", "--calibrate-from",
+                ann, "--set", 'infer.apply_impl="fused"', *extra]
+
+    results = {}
+    for tag, extra in (("one-shot", ()),
+                       ("streamed", ("--stream", str(STREAM_CHUNK)))):
+        out = os.path.join(tmp, f"stream_labels_{tag}.npy")
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with ChunkPasses() as passes:
+            status, wall, printed = _run_cli_captured(
+                argv(vol_path, ann_path, out, *extra))
+        launches, mma = _launches(), _mma_launches()["fused_convblock"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        m = f1_iou50_on_card(np.load(out), sv.labels)
+        results[tag] = dict(status=status, wall=wall, printed=printed,
+                            launches=launches, mma=mma, peak=peak, f1=m,
+                            passes=list(passes), path=out)
+        line = (f"[14b] cli.infer {tag}, trained checkpoint, fused apply, "
+                f"calibrated: status {status}, wall {wall:.3f} s incl. load, "
+                f"validation and save ({vox / wall / 1e6:.2f} Mvox/s), "
+                f"{m['n_pred']} instances vs {m['n_gt']} GT, F1@IoU0.5 "
+                f"{m['f1']:.4f}, peak device memory {peak:.2f} GB (whole "
+                f"call)")
+        if tag == "streamed":
+            st = _stream_stats(printed)
+            results[tag]["stats"] = st
+            line += (f", the stream's own {st['peak_device_bytes'] / 1e9:.2f}"
+                     " GB; stages " + ", ".join(
+                         f"{k} {st[k]:.3f} s" for k in (
+                             "t_normalize_pass", "t_calibrate_pass",
+                             "t_chunks", "t_finalize"))
+                     + f"; chase / flood passes per chunk "
+                     + ", ".join(f"{c} / {f}" for c, f in passes))
+        print(line + f"; kernel launches {launches}, {mma} of K4's on the "
+              "tensor cores")
+        if status not in (0, 4) or "connectivity validation: OK" not in \
+                printed:
+            raise AssertionError(f"[14b] {tag}: status {status} or the "
+                                 "validation failed")
+    one, st = results["one-shot"], results["streamed"]
+    between = f1_iou50_on_card(np.load(st["path"]), np.load(one["path"]))
+    print(f"[14b] streamed vs one-shot labels: F1@IoU0.5 {between['f1']:.4f} "
+          f"({between['tp']} matched of {between['n_pred']} / "
+          f"{between['n_gt']})")
+    if st["f1"]["f1"] < one["f1"]["f1"] - 0.02:
+        raise AssertionError(f"[14b] streamed F1@IoU0.5 {st['f1']['f1']:.4f}"
+                             f" is more than 0.02 below the one-shot's "
+                             f"{one['f1']['f1']:.4f}")
+    few = [k for k in INFER_KERNELS if st["launches"][k] < n_chunks]
+    if few:
+        raise AssertionError(f"[14b] {few} launched fewer times than the "
+                             f"{n_chunks} chunks: {st['launches']}")
+    if st["launches"]["fused_convblock"] != want_k4 or st["mma"] != want_k4:
+        raise AssertionError(
+            f"[14b] K4 launched {st['launches']['fused_convblock']} times "
+            f"({st['mma']} on the tensor cores), not 3 x {tiles} tiles x "
+            f"{n_chunks} chunks x 2 passes = {want_k4}")
+
+    # the chunks' copies overlapped with compute against in sequence, in
+    # turns, on this traffic; the threshold pass 1b found is fixed, so each
+    # run is pass 1, pass 2 and the finalize, and must give the same labels
+    model = trained_model(ckpt_dir, cfg)
+    fixed = calibrated(cfg.override(**{"infer.apply_impl": "fused"}),
+                       ann_path, vox)
+    fixed = fixed.override(**{"postproc.fg_target_fraction": 0.0,
+                              "postproc.fg_threshold":
+                                  st["stats"]["fg_threshold"]})
+    want = np.load(st["path"])
+    turns = {"overlapped": [], "sequential": []}
+    for mode in ("overlapped", "sequential", "sequential", "overlapped"):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stream_infer(model, fixed, sv.image, chunk_z=STREAM_CHUNK,
+                           stats=stats, overlap=mode == "overlapped")
+        wall = time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[14b] {mode} stream at the fixed "
+                                 "threshold != the cli.infer stream")
+        turns[mode].append((wall, stats["t_chunks"]))
+        del got
+    print("[14b] trained stream, threshold fixed, in turns (wall / pass 2 "
+          "s): " + "; ".join(f"{mode} " + ", ".join(
+              f"{w:.3f} / {c:.3f}" for w, c in ts) for mode, ts in
+                              turns.items()))
+    del model, want
+    torch.cuda.empty_cache()
+
+    # memory follows the chunk: the first 180 planes, streamed the same way
+    # (calibrated from the annotations of the nuclei centred there)
+    half_path = os.path.join(tmp, "stream_volume_half.npy")
+    np.save(half_path, sv.image[:D // 2])
+    inside = sv.centers[:, 0] < D // 2
+    half_ann = os.path.join(tmp, "stream_annotations_half.npz")
+    save_annotations(half_ann, sv.centers[inside], sv.half_sizes[inside])
+    torch.cuda.reset_peak_memory_stats()
+    status, wall, printed = _run_cli_captured(
+        argv(half_path, half_ann, os.path.join(tmp, "stream_labels_half.npy"),
+             "--stream", str(STREAM_CHUNK)))
+    call = torch.cuda.max_memory_allocated() / 1e9
+    half = _stream_stats(printed)["peak_device_bytes"] / 1e9
+    full = st["stats"]["peak_device_bytes"] / 1e9
+    print(f"[14b] peak device memory of the stream: {D // 2} planes "
+          f"{half:.2f} GB, {D} planes {full:.2f} GB; of the whole call with "
+          f"the chunked validation: {call:.2f} GB, {st['peak']:.2f} GB "
+          f"(one-shot call {one['peak']:.2f} GB); the {D // 2}-plane stream "
+          f"took {wall:.3f} s, status {status}")
+    if abs(half - full) > 0.1 * full or abs(call - st["peak"]) > 0.1 * \
+            st["peak"]:
+        raise AssertionError("[14b] the stream's device memory does not "
+                             "follow the chunk")
+    if status not in (0, 4) or "connectivity validation: OK" not in printed:
+        raise AssertionError(f"[14b] the {D // 2}-plane stream: status "
+                             f"{status} or the validation failed")
+    return st["launches"]
+
+
+def trained_model(ckpt_dir: str, cfg):
+    """Phase 9's checkpoint on the card, loaded as ``cli.infer`` loads it."""
+    from tpuseg_torch.cli.common import load_model_state
+    from tpuseg_torch.models import build_model
+
+    model = build_model(cfg.model)
+    model.load_state_dict(load_model_state(ckpt_dir))
+    return model.to("cuda")
+
+
+def phase_stream_seams(sv, ckpt_dir: str, tmp: str) -> None:
+    """(c) The first 180 planes calibrated from the whole stack's
+    annotations: twice the nuclei the half holds, so twice its foreground
+    fraction, a lower threshold and larger, merged instances; the input on
+    which ``--validate`` first failed. The one-shot path must give
+    connected instances (by construction); the stream runs at the default
+    halo (32) and at 56 (above the net's receptive-field radius, 53), every
+    chunk held against the twins (``ChunkTwinCheck``: K1-K3 and K5 at the
+    extended chunks' shapes, (160, 1024, 1024) and (208, 1024, 1024)); each
+    stream's validation is printed, and each label in more than one piece
+    is located against the seam and beside its one-shot instance."""
+    from tpuseg_torch.cli.infer import calibrated
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.infer import make_infer_fn, stream_infer
+    from tpuseg_torch.ops import labels_are_connected
+
+    ann_path = os.path.join(tmp, "stream_annotations.npz")
+    D = sv.image.shape[0] // 2
+    half = sv.image[:D]
+    cfg = calibrated(Config().override(**{"infer.apply_impl": "fused"}),
+                     ann_path, half.size)
+    model = trained_model(ckpt_dir, cfg)
+    one = make_infer_fn(model, cfg)(torch.from_numpy(half).cuda())
+    one = one.cpu().numpy()
+    one_ok = labels_are_connected(one)
+    print(f"[14c] {half.shape} calibrated from all {len(sv.centers)} nuclei "
+          f"(fg_target_fraction {cfg.postproc.fg_target_fraction:.5f}): "
+          f"one-shot {int(one.max())} instances, connected: {one_ok}")
+    if not one_ok:
+        raise AssertionError("[14c] the one-shot labels are not connected")
+    seams = list(range(STREAM_CHUNK, D, STREAM_CHUNK))
+    for halo in (32, 56):
+        stats = {}
+        with ChunkTwinCheck() as checked:
+            got = stream_infer(model, cfg, half, chunk_z=STREAM_CHUNK,
+                               halo=halo, stats=stats)
+        ok = labels_are_connected(got, chunk_z=STREAM_CHUNK)
+        m = f1_iou50_on_card(got, one)
+        print(f"[14c] halo {halo}: chunks {checked} == twins (K1-K3 and K5); "
+              f"{int(got.max())} instances, F1@IoU0.5 against the one-shot "
+              f"{m['f1']:.4f}, fg threshold {stats['fg_threshold']:.5f}, "
+              f"connected: {ok}")
+        if not ok:
+            n_split, found = split_labels(got, one, seams)
+            print(f"[14c] halo {halo}: {n_split} labels in more than one "
+                  f"piece (seams at planes {seams}): {found}")
+        del got
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_stream(ckpt_dir: str, tmp: str) -> dict:
+    """Phase 14: the streamed path on the card (runs after phase 9, with
+    its checkpoint)."""
+    from tpuseg_torch.data import synthesize_volume
+
+    free = free_host_gb()
+    print("[14] free -g:\n" + subprocess.run(
+        ["free", "-g"], capture_output=True, text=True).stdout.rstrip())
+    shape, n_inst = STREAM_SHAPE, STREAM_INSTANCES
+    if free < STREAM_MIN_FREE_GB:
+        shape, n_inst = STREAM_CUT, STREAM_CUT_INSTANCES
+        print(f"[14] the host has {free:.1f} GB free, under "
+              f"{STREAM_MIN_FREE_GB}: the stack is cut to {shape} with "
+              f"{n_inst} nuclei")
+    t0 = time.perf_counter()
+    sv = synthesize_volume(shape=shape, num_instances=n_inst, seed=SEED)
+    print(f"[14] synthesized {shape} with {n_inst} nuclei in "
+          f"{time.perf_counter() - t0:.1f} s ({sv.image.size / 1e6:.1f} Mvox, "
+          f"{free:.1f} GB free before)", flush=True)
+    # the card helper against the port's instance_metrics on a crop
+    from tpuseg_torch.eval import instance_metrics
+
+    crop = (slice(0, 48), slice(0, 256), slice(0, 256))
+    lab = np.ascontiguousarray(sv.labels[crop])
+    noisy = np.where(np.roll(lab, 2, axis=2) > 0, np.roll(lab, 2, axis=2), 0)
+    a, b = f1_iou50_on_card(noisy, lab), instance_metrics(noisy, lab)
+    if abs(a["f1"] - b["f1"]) > 1e-12 or a["tp"] != b["tp"]:
+        raise AssertionError(f"[14] F1 on the card {a} != instance_metrics "
+                             f"{b}")
+    launches = phase_stream_analytic(sv, tmp)
+    launches.update(phase_stream_trained(sv, ckpt_dir, tmp))
+    phase_stream_seams(sv, ckpt_dir, tmp)
+    return {k: launches[k] for k in STREAM_KERNELS}
+
+
 def check_block(name, got, want, dtype) -> float:
     """Max abs error of the K4 kernel against its twin; raises beyond the
     bounds.
@@ -1606,8 +2166,8 @@ def main(argv=None):
     only = {int(p) for p in parser.parse_args(argv).phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if 13 in only:
-        only.add(9)                     # phase 13 infers with phase 9's checkpoint
+    if 13 in only or 14 in only:
+        only.add(9)                     # phases 13, 14 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -1618,7 +2178,7 @@ def main(argv=None):
 
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
-    kernels, launches, tile_launches = {}, {}, {}
+    kernels, launches, tile_launches, streamed = {}, {}, {}, {}
     if want(3):
         kernels.update(_timed("phase 3", phase_kernels, sv.image))
     if want(4):
@@ -1644,6 +2204,8 @@ def main(argv=None):
             trained = _timed("phase 9", phase_trained_quality, sv, tmp)
             if want(13):
                 _timed("phase 13", phase_bench_configs, sv, *trained, tmp)
+            if want(14):
+                streamed = _timed("phase 14", phase_stream, trained[0], tmp)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):
@@ -1661,6 +2223,7 @@ def main(argv=None):
 
     record = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
                "replaces": KERNELS[k][1], "launches": launches[k],
+               "streamed_launches": streamed.get(k, 0),
                **({"tile_launches": tile_launches[k]}
                   if k in tile_launches else {}), **r}
               for k, r in kernels.items()]

@@ -159,8 +159,69 @@ def test_cli_postproc_settings(case):
     assert ((outs["flood"] > 0) == (outs["default"] > 0)).mean() >= 0.99
 
 
-@pytest.mark.parametrize("flag", [["--stream", "8"], ["--shard", "z2"],
-                                  ["--resume-dir", "d"], ["--validate"]])
+def test_cli_stream_equals_one_shot(case, capsys):
+    """``--stream 16`` (one chunk of the 16-plane volume, halo 32 of
+    edge-replicated planes: the net sees the one-shot's tile blocks) writes
+    the one-shot CLI's labels, with ``--report-convergence``,
+    ``--calibrate-from`` and ``--validate`` on both."""
+    sv = synthesize_volume(shape=(16, 32, 64), num_instances=6,
+                           radius_range=(3.0, 5.0), seed=3)
+    ann = str(case["tmp"] / "ann_stream.npz")
+    np.savez(ann, centers=sv.centers, half_sizes=sv.half_sizes)
+    outs = {}
+    for tag, extra in (("one_shot", []), ("stream", ["--stream", "16"])):
+        out = str(case["tmp"] / f"{tag}.npy")
+        status = cli_infer.main([
+            "--device", "cpu", "--checkpoint", case["ckpt"], "--input",
+            case["vol"], "--output", out, "--config", case["cfg_path"],
+            "--report-convergence", "--calibrate-from", ann, "--validate",
+            *extra])
+        printed = capsys.readouterr().out
+        assert status == 0
+        assert "flood convergence: CONVERGED" in printed
+        assert "connectivity validation: OK" in printed
+        outs[tag] = np.load(out)
+    assert "stream stats: " in printed and '"t_finalize"' in printed
+    assert outs["one_shot"].max() >= 2
+    np.testing.assert_array_equal(outs["stream"], outs["one_shot"])
+
+
+def test_cli_stream_resume_dir_npy(case, tmp_path):
+    """``--resume-dir`` with an ``.npy`` output: the labels stream into an
+    int32 memmap at the output path and equal the run without it; a rerun
+    finds the finished run and leaves the file as it was."""
+    base = ["--device", "cpu", "--checkpoint", case["ckpt"], "--input",
+            case["vol"], "--config", case["cfg_path"], "--stream", "8"]
+    plain = str(tmp_path / "plain.npy")
+    assert cli_infer.main([*base, "--output", plain]) == 0
+    out, rdir = str(tmp_path / "resumable.npy"), str(tmp_path / "resume")
+    for _ in range(2):
+        assert cli_infer.main([*base, "--output", out, "--resume-dir",
+                               rdir]) == 0
+        np.testing.assert_array_equal(np.load(out), np.load(plain))
+    assert sorted(os.listdir(rdir)) == ["chunk_000000.npz",
+                                        "chunk_000001.npz", "finalize.json",
+                                        "meta.json"]
+    assert np.load(plain).max() >= 3
+
+
+def test_cli_validate_fails_with_status_3(case, monkeypatch, capsys):
+    """A disconnected instance: ``--validate`` prints FAILED, exits 3 and
+    writes nothing."""
+    from tpuseg_torch.ops import components
+
+    monkeypatch.setattr(components, "labels_are_connected",
+                        lambda labels, device, chunk_z: False)
+    out = str(case["tmp"] / "never.npy")
+    status = cli_infer.main([
+        "--device", "cpu", "--checkpoint", case["ckpt"], "--input",
+        case["vol"], "--output", out, "--config", case["cfg_path"],
+        "--validate"])
+    assert status == 3 and not os.path.exists(out)
+    assert "connectivity validation: FAILED" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--stream-shard", "2"], ["--shard", "z2"]])
 def test_cli_unported_flags_error(case, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli_infer.main(["--checkpoint", case["ckpt"], "--input", case["vol"],
@@ -238,6 +299,19 @@ with tempfile.TemporaryDirectory() as tmp:
         "--set", "infer.halo=0", "--set", 'infer.apply_impl="fused"',
         "--set", 'postproc.nms_impl="pallas"'])
     assert status == 0 and np.load(os.path.join(tmp, "o3.npy")).shape == (12, 24, 40)
+    # streamed: the function and the entry point (two chunks, resumable)
+    streamed = infer.stream_infer(chip_smoke.AnalyticNet(), Config(
+        infer=InferConfig(tile=(8, 16, 32), halo=2, compute_dtype="float32")),
+        sv.image, chunk_z=8, halo=4, device="cpu")
+    assert streamed.shape == (12, 24, 40) and int(streamed.max()) >= 1
+    status = cli_infer.main([
+        "--device", "cpu", "--checkpoint", os.path.join(tmp, "m.pth"),
+        "--input", os.path.join(tmp, "v.npy"),
+        "--output", os.path.join(tmp, "o4.npy"),
+        "--config", os.path.join(tmp, "c.json"), "--stream", "8",
+        "--resume-dir", os.path.join(tmp, "resume"), "--validate",
+        "--report-convergence"])
+    assert status in (0, 4) and np.load(os.path.join(tmp, "o4.npy")).shape == (12, 24, 40)
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "tpuseg")]
 assert not loaded, loaded

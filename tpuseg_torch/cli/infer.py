@@ -1,17 +1,63 @@
 """``python -m tpuseg_torch.cli.infer`` — whole-volume instance segmentation
-on one device (port of ``tpuseg/cli/infer.py``, single-device branch):
-checkpoint in, instance-label volume out. Exit status 4 when
-``--report-convergence`` finds the flood truncated.
+on one device (port of ``tpuseg/cli/infer.py``, its single-device and
+streamed branches): checkpoint in, instance-label volume out. Exit status 4
+when ``--report-convergence`` finds the flood truncated, 3 when
+``--validate`` finds an instance in more than one piece.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 # flags of tpuseg.cli.infer that the port does not take yet (ROADMAP.md)
-_UNPORTED = ("--stream", "--resume-dir", "--stream-shard", "--validate",
-             "--shard")
+_UNPORTED = ("--stream-shard", "--shard")
+
+
+def _partial_path(output: str) -> str:
+    """Where ``--resume-dir`` keeps the int32 labels while they stream: the
+    output itself for ``.npy``, else a ``.partial.npy`` beside it."""
+    return output if output.endswith(".npy") else output + ".partial.npy"
+
+
+def _exists_with_shape(path: str, shape) -> bool:
+    import os
+
+    import numpy as np
+
+    if not os.path.exists(path):
+        return False
+    try:
+        m = np.load(path, mmap_mode="r")
+        return m.shape == tuple(shape) and m.dtype == np.int32
+    except (OSError, ValueError):
+        return False
+
+
+def calibrated(cfg, annotations: str, n_voxels: int):
+    """``cfg`` calibrated from a weak-annotation npz (``--calibrate-from``)
+    for a volume of ``n_voxels``: ``postproc.fg_target_fraction`` (the
+    box->mask inflation correction), a per-axis ``postproc.nms_radius`` and
+    the upper normalization percentile, from the instance-shape
+    statistics."""
+    import dataclasses
+
+    from tpuseg_torch.data.volume_io import load_annotations
+    from tpuseg_torch.ops.calibrate import (adaptive_upper_pct,
+                                            expected_fg_fraction,
+                                            nms_radius_from_half_sizes)
+
+    _, half_sizes = load_annotations(annotations)
+    frac = expected_fg_fraction(half_sizes, n_voxels)
+    upper = adaptive_upper_pct(frac, default_upper=cfg.data.normalize_pcts[1])
+    return dataclasses.replace(
+        cfg,
+        postproc=dataclasses.replace(
+            cfg.postproc, fg_target_fraction=frac,
+            nms_radius=nms_radius_from_half_sizes(half_sizes)),
+        data=dataclasses.replace(
+            cfg.data, normalize_pcts=(cfg.data.normalize_pcts[0], upper)))
 
 
 def main(argv=None) -> int:
@@ -37,6 +83,18 @@ def main(argv=None) -> int:
                         "correction) and a per-axis postproc.nms_radius "
                         "(anisotropic stacks need a smaller z footprint) from "
                         "the instance-shape statistics")
+    p.add_argument("--stream", type=int, default=0, metavar="CHUNK_Z",
+                   help="stream the volume through the device in z-chunks of "
+                        "this depth (volumes larger than device memory; an "
+                        ".npy input is read from disk chunk by chunk)")
+    p.add_argument("--resume-dir", default="",
+                   help="with --stream: per-chunk progress checkpoints so a "
+                        "killed run resumes from the first unfinished chunk "
+                        "(pass the same --output; it holds finished chunks)")
+    p.add_argument("--validate", action="store_true",
+                   help="check that every instance is one 6-connected "
+                        "component (ops.labels_are_connected); a failure "
+                        "exits with status 3 and writes no output")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     for flag in _UNPORTED:
@@ -45,13 +103,15 @@ def main(argv=None) -> int:
     for flag in _UNPORTED:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             p.error(f"{flag} is not ported yet (see ROADMAP.md)")
+    if args.resume_dir and not args.stream:
+        p.error("--resume-dir needs --stream")
     cfg = load_config(args)
 
     import numpy as np
     import torch
 
     from tpuseg_torch.data.volume_io import load_volume, save_volume
-    from tpuseg_torch.infer import make_infer_fn
+    from tpuseg_torch.infer import make_infer_fn, stream_infer
     from tpuseg_torch.models import build_model
 
     device = torch.device(args.device)
@@ -61,47 +121,73 @@ def main(argv=None) -> int:
     model = build_model(cfg.model)
     model.load_state_dict(load_model_state(args.checkpoint))
     model.to(device)
-    volume = load_volume(args.input).astype(np.float32)
+    if args.stream:
+        # the source dtype, from disk: stream_infer reads chunk by chunk
+        volume = load_volume(args.input, mmap=True)
+    else:
+        volume = load_volume(args.input).astype(np.float32)
 
     if args.calibrate_from:
-        import dataclasses
-
-        from tpuseg_torch.data.volume_io import load_annotations
-        from tpuseg_torch.ops.calibrate import (adaptive_upper_pct,
-                                                expected_fg_fraction,
-                                                nms_radius_from_half_sizes)
-
-        _, half_sizes = load_annotations(args.calibrate_from)
-        frac = expected_fg_fraction(half_sizes, volume.size)
-        nms_r = nms_radius_from_half_sizes(half_sizes)
-        upper = adaptive_upper_pct(frac, default_upper=cfg.data.normalize_pcts[1])
-        cfg = dataclasses.replace(
-            cfg,
-            postproc=dataclasses.replace(
-                cfg.postproc, fg_target_fraction=frac, nms_radius=nms_r),
-            data=dataclasses.replace(
-                cfg.data, normalize_pcts=(cfg.data.normalize_pcts[0], upper)))
+        cfg = calibrated(cfg, args.calibrate_from, volume.size)
+        pp = cfg.postproc
         print(f"calibrated from {args.calibrate_from}: "
-              f"fg_target_fraction={frac:.5f} nms_radius={nms_r} "
-              f"normalize_upper_pct={upper:.4f}")
+              f"fg_target_fraction={pp.fg_target_fraction:.5f} "
+              f"nms_radius={pp.nms_radius} "
+              f"normalize_upper_pct={cfg.data.normalize_pcts[1]:.4f}")
 
     t0 = time.perf_counter()
-    infer = make_infer_fn(model, cfg, normalize=not args.no_normalize,
-                          with_diagnostics=args.report_convergence)
-    out = infer(torch.from_numpy(volume).to(device))
-    labels, diag = out if args.report_convergence else (out, None)
-    labels = labels.cpu().numpy()      # waits for the device
+    diag = None
+    if args.stream:
+        out = None
+        if args.resume_dir:
+            # a persistent int32 memmap at the output path holds the finished
+            # chunks across a kill
+            path = _partial_path(args.output)
+            out = np.lib.format.open_memmap(
+                path, mode="r+" if _exists_with_shape(path, volume.shape)
+                else "w+", dtype=np.int32, shape=volume.shape)
+        stats = {}
+        labels = stream_infer(model, cfg, volume, out=out,
+                              chunk_z=args.stream,
+                              normalize=not args.no_normalize,
+                              resume_dir=args.resume_dir or None,
+                              stats=stats, device=device)
+        print("stream stats: " + json.dumps(stats))
+        diag = {"flood_truncated": stats.get("flood_truncated_voxels", 0)}
+    else:
+        infer = make_infer_fn(model, cfg, normalize=not args.no_normalize,
+                              with_diagnostics=args.report_convergence)
+        out = infer(torch.from_numpy(volume).to(device))
+        labels, diag = out if args.report_convergence else (out, None)
+        labels = labels.cpu().numpy()  # waits for the device
     dt = time.perf_counter() - t0
 
     status = 0
-    if diag is not None:
+    if args.report_convergence:
         n_trunc = diag["flood_truncated"]
         print(f"flood convergence: TRUNCATED ({n_trunc} truncated voxels — "
               "raise postproc.flood_iters)" if n_trunc else
               "flood convergence: CONVERGED (0 truncated voxels)")
         status = 4 if n_trunc else 0
 
-    save_volume(args.output, labels)
+    if args.validate:
+        from tpuseg_torch.ops.components import labels_are_connected
+
+        # a streamed volume is checked chunk by chunk, as it was made
+        ok = labels_are_connected(labels, device=device,
+                                  chunk_z=args.stream or None)
+        print(f"connectivity validation: {'OK' if ok else 'FAILED'}")
+        if not ok:
+            return 3
+
+    if args.stream and args.resume_dir and args.output.endswith(".npy"):
+        labels.flush()                 # the output memmap is the result file
+    else:
+        save_volume(args.output, labels)
+        if args.stream and args.resume_dir:
+            import os
+
+            os.remove(_partial_path(args.output))
     n = int(labels.max())
     mvox = volume.size / 1e6
     print(f"{args.input}: {volume.shape} -> {n} instances on {device} "

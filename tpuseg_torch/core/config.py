@@ -66,7 +66,7 @@ class PostprocConfig:
                                      # calibrate.expected_fg_fraction
     merge_saddle_ratio: float = 0.0  # >0: agglomerate adjacent basins whose
                                      # interface saddle >= ratio * the weaker
-                                     # basin's peak; 0 = off (not ported)
+                                     # basin's peak; 0 = off
     merge_max_pairs: int = 1 << 17   # static cap on distinct adjacent label
                                      # pairs for the merge table
 

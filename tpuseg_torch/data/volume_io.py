@@ -21,10 +21,13 @@ def _ext(path: str) -> str:
     return ext
 
 
-def load_volume(path: str, dataset: str = "volume") -> np.ndarray:
-    """Read a (D, H, W) volume from npy/npz."""
+def load_volume(path: str, dataset: str = "volume",
+                mmap: bool = False) -> np.ndarray:
+    """Read a (D, H, W) volume from npy/npz; ``mmap=True`` maps an ``.npy``
+    read-only instead of reading it (streamed inference reads it chunk by
+    chunk)."""
     if _ext(path) == ".npy":
-        return np.load(path)
+        return np.load(path, mmap_mode="r" if mmap else None)
     with np.load(path) as z:
         key = dataset if dataset in z else list(z.keys())[0]
         return z[key]

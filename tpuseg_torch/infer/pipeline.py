@@ -4,8 +4,9 @@
 tensor on any device:
 
   histogram-percentile scalars -> tiled halo-overlap net sweep (normalizing
-  per block) -> sigmoid -> watershed (K1-K3 kernels on CUDA) -> size filter
-  + compact 1..K relabel
+  per block) -> sigmoid -> watershed (K1-K3 kernels on CUDA) -> saddle
+  merge (``postproc.merge_saddle_ratio > 0``) -> size filter + compact 1..K
+  relabel
 
 ``InferConfig.apply_impl`` selects the sweep's forward: "flax" is the module
 forward, "fused" the eval apply of ``models/fused_eval.py`` (the three
@@ -29,17 +30,8 @@ from tpuseg_torch.data.normalize import histogram_percentile_scalars
 from tpuseg_torch.infer.tiles import rf_radius_bound, tiled_forward
 from tpuseg_torch.ops.calibrate import threshold_for_fraction
 from tpuseg_torch.ops.filter import size_filter_and_compact
+from tpuseg_torch.ops.merge import saddle_merge
 from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
-
-
-def _check_ported(cfg: Config) -> None:
-    unported = [
-        ("postproc.merge_saddle_ratio", cfg.postproc.merge_saddle_ratio > 0),
-    ]
-    for key, bad in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{key} is not ported yet; see ROADMAP.md")
 
 
 def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
@@ -62,8 +54,30 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
         # measured on the raw watershed output, before filtering
         diag = {"flood_truncated": int(flood_truncation_count(
             labels, fg_prob >= fg_threshold))}
+    if pp.merge_saddle_ratio > 0:
+        # prominence agglomeration: basins split by duplicate peaks on a
+        # flat top merge; real instances keep their valley
+        labels = saddle_merge(labels, peak_prob, pp.merge_saddle_ratio,
+                              max_pairs=pp.merge_max_pairs)
     labels = size_filter_and_compact(labels, pp.min_size)
     return (labels, diag) if want_diag else labels
+
+
+def make_apply_fn(model, cfg: Config, plain: bool = False):
+    """The sweep's forward under ``infer.apply_impl``: the module ("flax")
+    or the fused eval apply ("fused"; K4's twin with ``plain=True``).
+    Float32 convolutions then run in full float32 (cuDNN would take TF32)."""
+    if cfg.infer.apply_impl == "fused":
+        from tpuseg_torch.models.fused_eval import make_fused_apply
+
+        apply_fn = make_fused_apply(model, plain=plain)
+    elif cfg.infer.apply_impl == "flax":
+        apply_fn = model
+    else:
+        raise ValueError(f"unknown apply_impl {cfg.infer.apply_impl!r}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return apply_fn
 
 
 def make_infer_stages(model, cfg: Config, normalize: bool = True,
@@ -73,21 +87,10 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
     chains them. ``plain=True`` runs the plain twins of the watershed's and
     the fused apply's kernels instead of the CUDA kernels (the card's
     end-to-end check of the kernels)."""
-    _check_ported(cfg)
-    if cfg.infer.apply_impl == "fused":
-        from tpuseg_torch.models.fused_eval import make_fused_apply
-
-        apply_fn = make_fused_apply(model, plain=plain)
-    elif cfg.infer.apply_impl == "flax":
-        apply_fn = model
-    else:
-        raise ValueError(f"unknown apply_impl {cfg.infer.apply_impl!r}")
+    apply_fn = make_apply_fn(model, cfg, plain)
     if cfg.infer.program not in ("fused", "staged"):
         raise ValueError(f"unknown InferConfig.program {cfg.infer.program!r}")
     compute_dtype = resolve(cfg.infer.compute_dtype)
-    # float32 convolutions in full float32: cuDNN would take TF32 by default
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     # receptive field of the model actually supplied (stand-ins carry no
     # .config and trip no warning)

@@ -1,15 +1,21 @@
 """Ops of the port: peak NMS (with the K5 CUDA kernel, ``ops/nms.py``),
-watershed (with the K1-K3 kernels; see ``ops/watershed.py``), size filter,
-the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
+watershed (with the K1-K3 kernels; see ``ops/watershed.py``), saddle merge,
+connected components, size filter, compact relabel, the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies share the weight
 layout of ``ops/conv_mma.py``."""
 
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
                                         fused_convblock_plain)
 from tpuseg_torch.ops.convtrain import conv3x3, conv3x3_plain, conv3x3_raw
+from tpuseg_torch.ops.components import (connected_components,
+                                         label_components,
+                                         labels_are_connected)
 from tpuseg_torch.ops.filter import size_filter_and_compact
+from tpuseg_torch.ops.merge import (apply_merge_table, saddle_merge,
+                                    saddle_merge_edges, saddle_merge_table)
 from tpuseg_torch.ops.nms import fused_peak_nms
 from tpuseg_torch.ops.peaks import peak_nms, radius3
+from tpuseg_torch.ops.relabel import compact_relabel
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve, flood_pass,
                                       flood_resolve)
 from tpuseg_torch.ops.seed import seed_chase_pass
@@ -22,10 +28,12 @@ KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms)
 
 __all__ = [
-    "KERNEL_WRAPPERS", "chase_pass", "chase_resolve", "conv3x3",
-    "conv3x3_plain", "conv3x3_raw", "flood_pass", "flood_resolve",
-    "flood_truncation_count", "fold_bn_affine", "fused_convblock",
-    "fused_convblock_plain", "fused_peak_nms", "peak_nms", "radius3",
-    "seed_chase_pass", "size_filter_and_compact", "steepest_dir_codes",
-    "watershed",
+    "KERNEL_WRAPPERS", "apply_merge_table", "chase_pass", "chase_resolve",
+    "compact_relabel", "connected_components", "conv3x3", "conv3x3_plain",
+    "conv3x3_raw", "flood_pass", "flood_resolve", "flood_truncation_count",
+    "fold_bn_affine", "fused_convblock", "fused_convblock_plain",
+    "fused_peak_nms", "label_components", "labels_are_connected",
+    "peak_nms", "radius3", "saddle_merge", "saddle_merge_edges",
+    "saddle_merge_table", "seed_chase_pass", "size_filter_and_compact",
+    "steepest_dir_codes", "watershed",
 ]
