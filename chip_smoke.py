@@ -118,15 +118,36 @@ Phases, in order; any failure raises and exits non-zero:
     connected, streams at halo 32 and 56 with every chunk's watershed held
     against the twins (K1-K3 and K5 at the extended chunks' shapes), their
     validation printed and each label in more than one piece located
-    against the seam and beside its one-shot instance.
+    against the seam and beside its one-shot instance;
+15. (run after phase 9, with its checkpoint, and after phase 14, with its
+    stack, where it ran) the sharded paths, every shard on ``cuda:0``:
+    (a) AnalyticNet in float32 on the pre-normalized 96x512x512 stack,
+    ``make_sharded_infer_fn`` on a z2 and a (2, 2) mesh equal to the
+    one-shot ``make_infer_fn`` elementwise under default post-processing,
+    ``fg_target_fraction`` calibration, merge 0.8 and
+    ``nms_impl="pallas"``, the default and pallas calls equal to their
+    ``plain=True`` runs (K1-K3 and K5 against their twins at every shard's
+    extended slab), ``z_offset=3_000_000`` equal to 0, and a
+    ``normalize=True`` leg on the raw stack (the percentile scalars beside
+    the one-shot's, the label agreement); (b) phase 9's trained U-Net
+    through ``cli.infer --shard z2,y2 --calibrate-from --validate`` with
+    the fused apply beside the one-shot call: F1@IoU0.5 within 0.02 of
+    phase 9's calibrated figure, K1 launched 4 times and K4 576 (3 x 48
+    tiles x 4 shards, all on the tensor cores), wall time, peak device
+    memory and the extended slabs' voxels over the cores'; (c)
+    ``stream_infer(chunk_z=96)`` with the chunks split over 4 y-shards,
+    AnalyticNet in float32 on phase 14's stack (else a 180x1024x1024 one),
+    equal to the single-device stream at merge 0 and 0.8, then
+    ``cli.infer --stream 96 --stream-shard 4`` once with phase 9's
+    checkpoint.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13 and 14 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-15 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
-JSON record (with each kernel's launches on the main path and on the
-streamed path of phase 14, and its bound: the larger of its bytes over the
-card's memory rate and its operations over the card's peak rate, from this
-run's shapes) and
+JSON record (with each kernel's launches on the main path, on the streamed
+path of phase 14 and on the sharded paths of phase 15, and its bound: the
+larger of its bytes over the card's memory rate and its operations over
+the card's peak rate, from this run's shapes) and
 nvidia-smi's ``name, power.limit``; the last line is
 ``{"ok": true, "device": ...}``.
 """
@@ -217,6 +238,7 @@ STREAM_CUT, STREAM_CUT_INSTANCES = (360, 512, 512), 2250
 STREAM_MIN_FREE_GB = 32
 STREAM_CHUNK = 96
 STREAM_KERNELS = INFER_KERNELS + ("fused_convblock", "fused_peak_nms")
+SHARDED_KERNELS = STREAM_KERNELS        # K1-K5: phase 15's sharded runs
 
 
 class AnalyticNet(nn.Module):
@@ -1741,9 +1763,9 @@ def phase_stream_seams(sv, ckpt_dir: str, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_stream(ckpt_dir: str, tmp: str) -> dict:
+def phase_stream(ckpt_dir: str, tmp: str):
     """Phase 14: the streamed path on the card (runs after phase 9, with
-    its checkpoint)."""
+    its checkpoint). Returns the streamed launches and the stack."""
     from tpuseg_torch.data import synthesize_volume
 
     free = free_host_gb()
@@ -1770,10 +1792,326 @@ def phase_stream(ckpt_dir: str, tmp: str) -> dict:
     if abs(a["f1"] - b["f1"]) > 1e-12 or a["tp"] != b["tp"]:
         raise AssertionError(f"[14] F1 on the card {a} != instance_metrics "
                              f"{b}")
-    launches = phase_stream_analytic(sv, tmp)
-    launches.update(phase_stream_trained(sv, ckpt_dir, tmp))
+    launches = phase_stream_analytic(sv, tmp)       # K5's, under "pallas"
+    _add_launches(launches, phase_stream_trained(sv, ckpt_dir, tmp))
     phase_stream_seams(sv, ckpt_dir, tmp)
-    return {k: launches[k] for k in STREAM_KERNELS}
+    return {k: launches[k] for k in STREAM_KERNELS}, sv
+
+
+def _add_launches(acc: dict, launches=None) -> None:
+    """Adds ``launches`` (default: those since the last reset) into
+    ``acc``."""
+    for k, n in (_launches() if launches is None else launches).items():
+        acc[k] = acc.get(k, 0) + n
+
+
+def _card_mesh(shape, axes=("z", "y")):
+    """A mesh of ``shape`` with every shard on ``cuda:0``."""
+    from tpuseg_torch.parallel import Mesh
+
+    return Mesh(["cuda:0"] * int(np.prod(shape)), axes[:len(shape)], shape)
+
+
+def _sharded(model, cfg, mesh, volume, **kw):
+    """``make_sharded_infer_fn``'s labels of ``volume`` as one numpy array,
+    the call's wall seconds (upload and gather included) and its peak
+    device memory in GB."""
+    from tpuseg_torch.infer import make_sharded_infer_fn, shard_volume, unshard
+
+    z_offset = kw.pop("z_offset", 0)
+    infer = make_sharded_infer_fn(model, cfg, mesh, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    labels = unshard(infer(shard_volume(volume, mesh), z_offset=z_offset),
+                     mesh)
+    return (labels, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_sharded_analytic(sv, acc: dict) -> None:
+    """(a) AnalyticNet in float32 on the pre-normalized 96x512x512 stack
+    (``normalize=False``), shards on ``cuda:0``: ``make_sharded_infer_fn``
+    on a z2 mesh (extended slabs (112, 512, 512)) and a (2, 2) mesh
+    ((112, 320, 512)) equals the one-shot ``make_infer_fn`` elementwise
+    under default post-processing, ``fg_target_fraction`` calibration,
+    merge 0.8 and ``nms_impl="pallas"``; the default and the pallas calls
+    once more with ``plain=True`` (K1-K3 and K5 against their twins at
+    every shard's shape) must give the same labels, and the default once
+    more at ``z_offset=3_000_000``. Then one ``normalize=True`` leg on the
+    raw stack: the sharded percentile scalars beside the one-shot's (equal:
+    int64 counts) and the label agreement."""
+    import dataclasses
+
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.data.normalize import (histogram_percentile_normalize,
+                                             histogram_percentile_scalars)
+    from tpuseg_torch.infer import make_infer_fn, shard_volume
+    from tpuseg_torch.infer.sharded import global_histogram_percentile
+    from tpuseg_torch.ops.calibrate import expected_fg_fraction
+
+    model = AnalyticNet().cuda()
+    base = Config(infer=InferConfig(compute_dtype="float32"))
+    v = histogram_percentile_normalize(
+        torch.from_numpy(sv.image)[None].cuda())[0].cpu().numpy()
+    frac = expected_fg_fraction(sv.half_sizes, sv.image.size)
+    settings = (("default", {}),
+                (f"fg_target_fraction={frac:.5f}",
+                 {"fg_target_fraction": frac}),
+                ("merge_saddle_ratio=0.8", {"merge_saddle_ratio": 0.8}),
+                ('nms_impl="pallas"', {"nms_impl": "pallas"}))
+    for tag, post in settings:
+        cfg = dataclasses.replace(base, postproc=dataclasses.replace(
+            base.postproc, **post))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        want = make_infer_fn(model, cfg, normalize=False)(
+            torch.from_numpy(v).cuda()).cpu().numpy()
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        for name, shape in (("z2", (2,)), ("(2,2)", (2, 2))):
+            mesh = _card_mesh(shape)
+            _reset_launches()
+            got, wall, peak = _sharded(model, cfg, mesh, v, normalize=False)
+            _add_launches(acc)
+            launches = _launches()
+            same = np.array_equal(got, want)
+            line = (f"[15a] AnalyticNet, {tag}, mesh {name}: sharded "
+                    f"{'==' if same else '!='} one-shot elementwise "
+                    f"({int(want.max())} instances); sharded {wall:.3f} s, "
+                    f"peak device memory {peak:.3f} GB, one-shot {one_s:.3f} "
+                    f"s, {one_peak:.3f} GB; kernel launches {launches}")
+            if not same:
+                raise AssertionError(line + f"; {int((got != want).sum())} "
+                                     "voxels differ")
+            if tag == "default" or "pallas" in tag:
+                twin, _, _ = _sharded(model, cfg, mesh, v, normalize=False,
+                                   plain=True)
+                if not np.array_equal(twin, got):
+                    raise AssertionError(f"[15a] {tag}, mesh {name}: the "
+                                         "kernels != their twins")
+                line += "; == the twins (plain=True)"
+            if tag == "default" and name == "(2,2)":
+                far, _, _ = _sharded(model, cfg, mesh, v, normalize=False,
+                                  z_offset=3_000_000)
+                if not np.array_equal(far, got):
+                    raise AssertionError("[15a] z_offset 3e6 changed the "
+                                         "labels")
+                line += "; z_offset 3e6 == 0"
+            print(line, flush=True)
+            if "pallas" in tag and not launches["fused_peak_nms"]:
+                raise AssertionError("[15a] nms_impl=pallas never launched K5")
+            del got
+    # normalize=True on the raw stack, (2, 2) mesh
+    mesh = _card_mesh((2, 2))
+    pcts, stride = base.data.normalize_pcts, base.data.normalize_sample_stride
+    sharded_s = [float(x) for x in global_histogram_percentile(
+        shard_volume(sv.image, mesh), pcts, sample_stride=stride)]
+    one_s = [float(x) for x in histogram_percentile_scalars(
+        torch.from_numpy(sv.image).cuda(), pcts, sample_stride=stride)]
+    want = make_infer_fn(model, base)(
+        torch.from_numpy(sv.image).cuda()).cpu().numpy()
+    _reset_launches()
+    got, _, _ = _sharded(model, base, mesh, sv.image, normalize=True)
+    _add_launches(acc)
+    agree = float((got == want).mean())
+    print(f"[15a] normalize=True, mesh (2,2): percentile scalars sharded "
+          f"{sharded_s}, one-shot {one_s}; label agreement {agree:.7f} "
+          f"({int(got.max())} / {int(want.max())} instances)")
+    if sharded_s != one_s or agree != 1.0:
+        raise AssertionError("[15a] normalize=True: sharded != one-shot")
+
+
+def _cli_labels(argv, tag: str):
+    """``cli.infer`` through ``_run_cli_captured``, its kernel counts set to
+    0 just before and read just after: ``(wall, printed, labels, peak GB,
+    launches, K4's tensor-core launches)``. The call must exit 0 with its
+    ``--validate`` passed."""
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    status, wall, printed = _run_cli_captured(argv)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches, mma = _launches(), _mma_launches()["fused_convblock"]
+    if status != 0 or "connectivity validation: OK" not in printed:
+        raise AssertionError(f"[15] cli.infer {tag}: status {status} or the "
+                             "validation failed")
+    out = argv[argv.index("--output") + 1]
+    return wall, printed, np.load(out), peak, launches, mma
+
+
+def phase_sharded_trained(sv, ckpt_dir: str, vol_path: str, ann_path: str,
+                          f1_floor: float, tmp: str, acc: dict) -> None:
+    """(b) Phase 9's trained U-Net (32/64/128/256, bf16) through
+    ``cli.infer --shard z2,y2 --calibrate-from --validate`` with the fused
+    apply on the 96x512x512 stack, beside the one-shot call with the same
+    flags (both must exit 0 with the validation passed): F1@IoU0.5 within 0.02 of phase 9's calibrated one-shot (the
+    net's receptive-field radius, ~53, exceeds ``shard_halo`` 32, so this
+    leg is instance-level), K1 launched once a shard (4), K4 3 x 48 tiles
+    x 4 shards = 576 times, all on the tensor cores; wall time and peak
+    device memory of both calls, and the extended slabs' voxels over the
+    cores'."""
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.infer.tiles import tile_grid
+
+    cfg = Config()
+    halo = cfg.infer.shard_halo
+    D, H, W = MAIN_SHAPE
+    ext = (D // 2 + 2 * halo, H // 2 + 2 * halo, W)
+    want_k4 = 3 * len(tile_grid(ext, cfg.infer.tile)) * 4
+    ratio = np.prod(ext) / (D // 2 * H // 2 * W)
+    vox = int(np.prod(MAIN_SHAPE))
+    res = {}
+    for tag, extra in (("one-shot", ()), ("sharded z2,y2",
+                                          ("--shard", "z2,y2"))):
+        out = os.path.join(tmp, f"labels_15b_{len(res)}.npy")
+        wall, printed, labels, peak, launches, mma = _cli_labels(
+            ["--checkpoint", ckpt_dir, "--input", vol_path, "--output", out,
+             "--calibrate-from", ann_path, "--validate", "--set",
+             'infer.apply_impl="fused"', *extra], tag)
+        if extra:
+            _add_launches(acc, launches)
+        m = f1_iou50_on_card(labels, sv.labels)
+        res[tag] = m
+        print(f"[15b] cli.infer {tag}, trained checkpoint, bf16, fused apply, "
+              f"calibrated: validation OK, wall {wall:.3f} s incl. load, "
+              f"validation and save ({vox / wall / 1e6:.2f} Mvox/s), peak "
+              f"device memory {peak:.2f} GB, {m['n_pred']} instances vs "
+              f"{m['n_gt']} GT, F1@IoU0.5 {m['f1']:.4f} (phase 9 calibrated "
+              f"one-shot {f1_floor:.4f}); kernel launches {launches}, {mma} "
+              "of K4's on the tensor cores", flush=True)
+        if labels.shape != MAIN_SHAPE:
+            raise AssertionError(f"[15b] {tag}: labels {labels.shape}")
+    print(f"[15b] shards' extended slabs {ext} over cores "
+          f"{(D // 2, H // 2, W)}: {ratio:.3f}x the voxels")
+    if res["sharded z2,y2"]["f1"] < f1_floor - 0.02:
+        raise AssertionError(f"[15b] sharded F1@IoU0.5 "
+                             f"{res['sharded z2,y2']['f1']:.4f} is more than "
+                             f"0.02 below phase 9's {f1_floor:.4f}")
+    if launches["seed_chase_pass"] != 4 or launches["fused_convblock"] != \
+            want_k4 or mma != want_k4:
+        raise AssertionError(f"[15b] K1 {launches['seed_chase_pass']} (want "
+                             f"4), K4 {launches['fused_convblock']} ({mma} "
+                             f"on the tensor cores; want {want_k4})")
+
+
+def phase_sharded_stream(sv, stream_sv, ckpt_dir: str, vol_path: str,
+                         ann_path: str, f1_floor: float, tmp: str,
+                         acc: dict) -> None:
+    """(c) The streamed x sharded composition: AnalyticNet in float32,
+    ``stream_infer(chunk_z=96, mesh=<4 y-shards on cuda:0>)`` on phase 14's
+    stack (or a 180x1024x1024 one when phase 14 did not run) equals the
+    single-device ``stream_infer`` elementwise at merge 0 and 0.8; then
+    ``cli.infer --stream 96 --stream-shard 4`` once, with phase 9's
+    checkpoint on the 96x512x512 stack (fused apply, calibrated,
+    ``--validate``, which must pass): F1@IoU0.5 within 0.02 of phase 9's
+    one-shot, K1 launched once a y-shard of the one chunk (4), K4 3 x
+    tiles of a y-shard's extended slab x 4 x 2 (passes 1b and 2), all on
+    the tensor cores."""
+    import dataclasses
+
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.data import synthesize_volume
+    from tpuseg_torch.infer import stream_infer
+    from tpuseg_torch.infer.tiles import tile_grid
+
+    if stream_sv is None:
+        t0 = time.perf_counter()
+        stream_sv = synthesize_volume(shape=(180, 1024, 1024),
+                                      num_instances=STREAM_INSTANCES // 2,
+                                      seed=SEED)
+        print(f"[15c] synthesized (180, 1024, 1024) in "
+              f"{time.perf_counter() - t0:.1f} s")
+    image = stream_sv.image
+    model = AnalyticNet().cuda()
+    mesh = _card_mesh((4,), axes=("y",))
+    base = Config(infer=InferConfig(compute_dtype="float32"))
+    for ratio in (0.0, 0.8):
+        cfg = dataclasses.replace(base, postproc=dataclasses.replace(
+            base.postproc, merge_saddle_ratio=ratio))
+        t0 = time.perf_counter()
+        want = stream_infer(model, cfg, image, chunk_z=STREAM_CHUNK)
+        one_s = time.perf_counter() - t0
+        _reset_launches()
+        stats = {}
+        t0 = time.perf_counter()
+        got = stream_infer(model, cfg, image, chunk_z=STREAM_CHUNK,
+                           mesh=mesh, stats=stats)
+        wall = time.perf_counter() - t0
+        _add_launches(acc)
+        same = np.array_equal(got, want)
+        print(f"[15c] AnalyticNet {image.shape}, merge {ratio}: y-sharded "
+              f"stream (4 shards) {'==' if same else '!='} single-device "
+              f"stream elementwise ({int(want.max())} instances); sharded "
+              f"{wall:.3f} s (stages " + ", ".join(
+                  f"{k} {stats[k]:.3f} s" for k in (
+                      "t_normalize_pass", "t_calibrate_pass", "t_chunks",
+                      "t_finalize"))
+              + f"; peak device memory {stats['peak_device_bytes'] / 1e9:.2f}"
+              f" GB), single-device {one_s:.3f} s; kernel launches "
+              f"{_launches()}", flush=True)
+        if not same:
+            raise AssertionError(f"[15c] merge {ratio}: sharded stream != "
+                                 f"stream on {int((got != want).sum())} "
+                                 "voxels")
+        del got, want
+    del model
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "labels_15c.npy")
+    wall, printed, labels, peak, launches, mma = _cli_labels(
+        ["--checkpoint", ckpt_dir, "--input", vol_path, "--output", out,
+         "--stream", str(STREAM_CHUNK), "--stream-shard", "4",
+         "--calibrate-from", ann_path, "--validate", "--set",
+         'infer.apply_impl="fused"'], "--stream-shard 4")
+    _add_launches(acc, launches)
+    # one chunk of 4 y-shards, each swept in passes 1b and 2
+    cfg = Config()
+    D, H, W = MAIN_SHAPE
+    n_chunks = -(-D // STREAM_CHUNK)
+    ext = (STREAM_CHUNK + 2 * cfg.infer.shard_halo,
+           H // 4 + 2 * cfg.infer.shard_halo, W)
+    want_k1 = n_chunks * 4
+    want_k4 = 3 * len(tile_grid(ext, cfg.infer.tile)) * want_k1 * 2
+    m = f1_iou50_on_card(labels, sv.labels)
+    print(f"[15c] cli.infer --stream {STREAM_CHUNK} --stream-shard 4, trained "
+          f"checkpoint, fused apply, calibrated, {MAIN_SHAPE}: validation "
+          f"OK, wall {wall:.3f} s, peak device memory {peak:.2f} GB, "
+          f"{m['n_pred']} instances vs {m['n_gt']} GT, F1@IoU0.5 "
+          f"{m['f1']:.4f} (phase 9 calibrated one-shot {f1_floor:.4f}); "
+          f"kernel launches {launches}, {mma} of K4's on the tensor cores")
+    if "--stream-shard 4: Mesh" not in printed:
+        raise AssertionError("[15c] cli.infer --stream-shard printed no mesh")
+    if m["f1"] < f1_floor - 0.02:
+        raise AssertionError(f"[15c] --stream-shard F1@IoU0.5 {m['f1']:.4f} "
+                             f"is more than 0.02 below phase 9's "
+                             f"{f1_floor:.4f}")
+    if launches["seed_chase_pass"] != want_k1 or launches[
+            "fused_convblock"] != want_k4 or mma != want_k4:
+        raise AssertionError(
+            f"[15c] K1 {launches['seed_chase_pass']} (want {want_k1}: "
+            f"{n_chunks} chunk x 4 y-shards), K4 "
+            f"{launches['fused_convblock']} ({mma} on the tensor cores; want "
+            f"3 x {len(tile_grid(ext, cfg.infer.tile))} tiles of {ext} x "
+            f"{want_k1} x 2 passes = {want_k4})")
+
+
+def phase_sharded(sv, stream_sv, ckpt_dir: str, vol_path: str,
+                  ann_path: str, f1_floor: float, tmp: str) -> dict:
+    """Phase 15: the sharded paths with every shard on ``cuda:0`` (runs
+    after phase 9, with its checkpoint, and after phase 14 where it ran,
+    with its stack). Returns every kernel's launches summed over the
+    sharded runs of (a)-(c)."""
+    acc = {}
+    phase_sharded_analytic(sv, acc)
+    phase_sharded_trained(sv, ckpt_dir, vol_path, ann_path, f1_floor, tmp,
+                          acc)
+    phase_sharded_stream(sv, stream_sv, ckpt_dir, vol_path, ann_path,
+                         f1_floor, tmp, acc)
+    missing = [k for k in SHARDED_KERNELS if not acc.get(k)]
+    if missing:
+        raise AssertionError(f"[15] the sharded paths never launched "
+                             f"{missing}: {acc}")
+    return acc
 
 
 def check_block(name, got, want, dtype) -> float:
@@ -2166,8 +2504,8 @@ def main(argv=None):
     only = {int(p) for p in parser.parse_args(argv).phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if 13 in only or 14 in only:
-        only.add(9)                     # phases 13, 14 infer with phase 9's checkpoint
+    if only & {13, 14, 15}:
+        only.add(9)                     # phases 13-15 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -2178,7 +2516,7 @@ def main(argv=None):
 
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
-    kernels, launches, tile_launches, streamed = {}, {}, {}, {}
+    kernels, launches, tile_launches, streamed, sharded = {}, {}, {}, {}, {}
     if want(3):
         kernels.update(_timed("phase 3", phase_kernels, sv.image))
     if want(4):
@@ -2204,8 +2542,14 @@ def main(argv=None):
             trained = _timed("phase 9", phase_trained_quality, sv, tmp)
             if want(13):
                 _timed("phase 13", phase_bench_configs, sv, *trained, tmp)
+            stream_sv = None
             if want(14):
-                streamed = _timed("phase 14", phase_stream, trained[0], tmp)
+                streamed, stream_sv = _timed("phase 14", phase_stream,
+                                             trained[0], tmp)
+            if want(15):
+                sharded = _timed("phase 15", phase_sharded, sv, stream_sv,
+                                 *trained, tmp)
+            del stream_sv
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):
@@ -2224,6 +2568,7 @@ def main(argv=None):
     record = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
                "replaces": KERNELS[k][1], "launches": launches[k],
                "streamed_launches": streamed.get(k, 0),
+               "sharded_launches": sharded.get(k, 0),
                **({"tile_launches": tile_launches[k]}
                   if k in tile_launches else {}), **r}
               for k, r in kernels.items()]

@@ -223,11 +223,136 @@ def test_cli_validate_fails_with_status_3(case, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--stream-shard", "2"], ["--shard", "z2"]])
 def test_cli_unported_flags_error(case, flag, capsys):
+    """Both flags are ported now; each is refused (usage, status 2) in the
+    mode it does not belong to: ``--stream-shard`` without ``--stream``,
+    ``--shard`` with it."""
+    stream = ["--stream", "8"] if flag[0] == "--shard" else []
     with pytest.raises(SystemExit) as exc:
         cli_infer.main(["--checkpoint", case["ckpt"], "--input", case["vol"],
-                        "--output", "x.npy", *flag])
+                        "--output", "x.npy", *flag, *stream])
     assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" not in err
+    assert ("needs --stream" in err if not stream
+            else "with --stream use --stream-shard" in err)
+
+
+def _analytic_unet_state(mcfg):
+    """A U-Net state whose logits are AnalyticNet's, up to the batch norms'
+    ``1 / sqrt(1 + eps)``: only the centre taps of the full-resolution
+    path carry the input (enc0 -> the skip -> up0.block -> head_trunk),
+    every other weight is zero, and the heads map it to ``25 (v - 0.35)``
+    and ``25 (v - 0.75)``. Its receptive field is 0, so its basins are the
+    blobs': the sharded and streamed CLI runs meet the halo contract."""
+    from tpuseg_torch.core import ModelConfig as PortModelConfig
+    from tpuseg_torch.models import UNet3D
+
+    model = UNet3D(PortModelConfig(**{
+        k: getattr(mcfg, k) for k in ("features", "head_features",
+                                      "compute_dtype")}))
+    # batch norms the identity (scale 1, variance 1), everything else 0
+    sd = {k: torch.ones_like(v) if k.endswith("running_var") or (
+        ".norm" in k and k.endswith(".weight")) else torch.zeros_like(v)
+        for k, v in model.state_dict().items()}
+    f0 = mcfg.features[0]
+    for conv, cin in (("enc0.conv0", 0), ("enc0.conv1", 0),
+                      ("up0.block.conv0", f0), ("up0.block.conv1", 0),
+                      ("head_trunk.conv0", 0), ("head_trunk.conv1", 0)):
+        sd[conv + ".weight"][0, cin, 1, 1, 1] = 1.0
+    for head, bias in (("fg_head", -0.35), ("peak_head", -0.75)):
+        sd[head + ".weight"][0, 0] = 25.0
+        sd[head + ".bias"][0] = 25.0 * bias
+    return sd
+
+
+@pytest.fixture(scope="module")
+def shard_case(tmp_path_factory):
+    """The analytic U-Net (``_analytic_unet_state``) on a (64, 32, 32)
+    stack of blobs: ``--shard z8`` (slabs of 8), ``z2,y4`` (rows of 8) and
+    ``--stream-shard 4`` at shard halo 8 meet the halo contract, so their
+    labels equal the one-shot CLI's."""
+    tmp = tmp_path_factory.mktemp("cli_shard")
+    mcfg = ModelConfig(features=(4, 8), head_features=4,
+                       compute_dtype="float32")
+    ckpt = str(tmp / "analytic.pth")
+    torch.save(_analytic_unet_state(mcfg), ckpt)
+    image = synthesize_volume(shape=(64, 32, 32), num_instances=8,
+                              radius_range=(3.0, 5.0), noise=0.0,
+                              seed=4).image
+    vol = str(tmp / "vol.npy")
+    np.save(vol, image)
+    cfg = Config().override(**{
+        "model.features": [4, 8], "model.head_features": 4,
+        "model.compute_dtype": "float32", "infer.compute_dtype": "float32",
+        "infer.tile": [32, 32, 32], "infer.halo": 0,
+        "infer.shard_halo": 8, "postproc.min_size": 5,
+        "postproc.flood_iters": 16})
+    cfg_path = str(tmp / "cfg.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    return dict(tmp=tmp, ckpt=ckpt, vol=vol, image=image, cfg_path=cfg_path)
+
+
+def _shard_argv(case, out, *extra):
+    return ["--device", "cpu", "--checkpoint", case["ckpt"], "--input",
+            case["vol"], "--output", out, "--config", case["cfg_path"],
+            "--validate", *extra]
+
+
+@pytest.fixture(scope="module")
+def shard_one_shot(shard_case):
+    out = str(shard_case["tmp"] / "one_shot.npy")
+    assert cli_infer.main(_shard_argv(shard_case, out)) == 0
+    labels = np.load(out)
+    assert labels.max() >= 5
+    return labels
+
+
+@pytest.mark.parametrize("spec", ["z8", "z2,y4"])
+def test_cli_infer_shard_modes(shard_case, shard_one_shot, spec, capsys):
+    """``--shard z8`` and ``--shard z2,y4`` on the CPU (all shards on it)
+    with ``--validate`` (``tests/e2e/test_cli.py``'s case): the placement
+    line, connected instances, and the one-shot CLI's labels."""
+    out = str(shard_case["tmp"] / f"shard_{spec.replace(',', '_')}.npy")
+    status = cli_infer.main(_shard_argv(shard_case, out, "--shard", spec))
+    printed = capsys.readouterr().out
+    assert status == 0
+    assert f"--shard {spec}: Mesh(" in printed and "devices=[cpu" in printed
+    assert "connectivity validation: OK" in printed
+    np.testing.assert_array_equal(np.load(out), shard_one_shot)
+
+
+def test_cli_infer_stream_shard(shard_case, shard_one_shot, capsys):
+    """``--stream 16 --stream-shard 4 --validate``: the y-sharded chunks
+    give the plain stream's labels, here the one-shot's."""
+    outs = {}
+    for tag, extra in (("plain", []), ("sharded", ["--stream-shard", "4"])):
+        out = str(shard_case["tmp"] / f"stream_{tag}.npy")
+        assert cli_infer.main(_shard_argv(shard_case, out, "--stream", "16",
+                                          *extra)) == 0
+        printed = capsys.readouterr().out
+        assert "connectivity validation: OK" in printed
+        outs[tag] = np.load(out)
+    assert "--stream-shard 4: Mesh({'y': 4}" in printed
+    np.testing.assert_array_equal(outs["sharded"], outs["plain"])
+    np.testing.assert_array_equal(outs["sharded"], shard_one_shot)
+
+
+def test_cli_bad_shard_spec(case):
+    for spec in ("x8", "y2,z2", "z"):
+        with pytest.raises(SystemExit, match="bad --shard spec"):
+            cli_infer.main(["--device", "cpu", "--checkpoint", case["ckpt"],
+                            "--input", case["vol"], "--output", "x.npy",
+                            "--shard", spec])
+
+
+def test_cli_shard_report_convergence_not_wired(shard_case, capsys):
+    out = str(shard_case["tmp"] / "shard_conv.npy")
+    status = cli_infer.main(_shard_argv(shard_case, out, "--shard", "z2",
+                                        "--report-convergence"))
+    assert status == 0
+    assert "--report-convergence: not wired for --shard (use --stream or " \
+        "single-device)" in capsys.readouterr().out
 
 
 def test_cli_cuda_without_card_raises(case):
@@ -312,6 +437,24 @@ with tempfile.TemporaryDirectory() as tmp:
         "--resume-dir", os.path.join(tmp, "resume"), "--validate",
         "--report-convergence"])
     assert status in (0, 4) and np.load(os.path.join(tmp, "o4.npy")).shape == (12, 24, 40)
+    # sharded: the function over a (z, y) mesh of CPU shards, and the entry
+    # point's --shard and --stream-shard
+    small = Config(infer=InferConfig(tile=(8, 16, 32), halo=2,
+                                     compute_dtype="float32", shard_halo=4))
+    mesh = infer.make_zy_mesh((2, 2), devices=["cpu"] * 4)
+    sharded = infer.unshard(infer.make_sharded_infer_fn(
+        chip_smoke.AnalyticNet(), small, mesh)(infer.shard_volume(
+            sv.image, mesh)), mesh)
+    assert sharded.shape == (12, 24, 40) and int(sharded.max()) >= 1
+    for i, extra in enumerate((["--shard", "z2,y2"],
+                               ["--stream", "8", "--stream-shard", "2"])):
+        out = os.path.join(tmp, f"o5_{i}.npy")
+        status = cli_infer.main([
+            "--device", "cpu", "--checkpoint", os.path.join(tmp, "m.pth"),
+            "--input", os.path.join(tmp, "v.npy"), "--output", out,
+            "--config", os.path.join(tmp, "c.json"), "--set",
+            "infer.shard_halo=4", *extra])
+        assert status == 0 and np.load(out).shape == (12, 24, 40)
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "tpuseg")]
 assert not loaded, loaded

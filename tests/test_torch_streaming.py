@@ -291,8 +291,14 @@ def test_stream_bfloat16_equals_reference(cfg, normalized, ref):
 
 
 def test_stream_mesh_raises(cfg, normalized):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _stream(cfg, normalized, mesh=object())
+    """``mesh=`` is ported (``tests/test_torch_streamed_sharded.py``); a
+    mesh that cannot split the chunks over y still raises."""
+    from tpuseg_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="must divide"):
+        _stream(cfg, normalized, mesh=Mesh(["cpu"] * 3, ("y",)))
+    with pytest.raises(ValueError, match="one axis"):
+        _stream(cfg, normalized, mesh=Mesh(["cpu"] * 4, ("z", "y"), (2, 2)))
 
 
 def test_stream_resumed_truncation_count_is_whole_volume(cfg, normalized,

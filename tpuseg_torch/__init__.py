@@ -8,9 +8,11 @@ so that each module's counterpart is easy to find, and
 of ``tpuseg``: what it needs from a module there (the config dataclasses,
 the numpy instance metrics) it keeps as its own copy.
 
-Ported so far: the single-device inference path (``cli/infer.py`` ->
-``infer/pipeline.make_infer_fn``) and the single-device weakly-supervised
-training path (``cli/train.py`` -> ``train/loop.train``), with a
+Ported so far: inference (``cli/infer.py`` -> ``infer/pipeline.make_infer_fn``,
+streamed in z-chunks by ``infer/streaming.stream_infer``, sharded over a z
+or (z, y) mesh in one process by ``infer/sharded.make_sharded_infer_fn``,
+and the two composed) and the single-device weakly-supervised training
+path (``cli/train.py`` -> ``train/loop.train``), with a
 hand-written CUDA kernel for every Pallas kernel of the JAX package: the
 watershed's seed, chase and flood passes, the peak NMS, the fused eval
 ConvBlock and the training path's full-resolution 3x3x3 conv (``csrc/``,

@@ -1,18 +1,20 @@
 """``python -m tpuseg_torch.cli.infer`` — whole-volume instance segmentation
-on one device (port of ``tpuseg/cli/infer.py``, its single-device and
-streamed branches): checkpoint in, instance-label volume out. Exit status 4
-when ``--report-convergence`` finds the flood truncated, 3 when
-``--validate`` finds an instance in more than one piece.
+(port of ``tpuseg/cli/infer.py``): checkpoint in, instance-label volume
+out, in one shot, streamed in z-chunks (``--stream``), sharded over a z or
+(z, y) mesh (``--shard``), or streamed with each chunk sharded over y
+(``--stream-shard``). Shard i sits on visible card i mod the card count
+(all on one card with one), or on the CPU under ``--device cpu``; one
+process runs them all. Exit status 4 when ``--report-convergence`` finds
+the flood truncated, 3 when ``--validate`` finds an instance in more than
+one piece.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
-
-# flags of tpuseg.cli.infer that the port does not take yet (ROADMAP.md)
-_UNPORTED = ("--stream-shard", "--shard")
 
 
 def _partial_path(output: str) -> str:
@@ -91,28 +93,46 @@ def main(argv=None) -> int:
                    help="with --stream: per-chunk progress checkpoints so a "
                         "killed run resumes from the first unfinished chunk "
                         "(pass the same --output; it holds finished chunks)")
+    p.add_argument("--stream-shard", type=int, default=0, metavar="N",
+                   help="with --stream: shard each z-chunk over y across N "
+                        "shards (streamed x sharded composition)")
+    p.add_argument("--shard", default="", metavar="MESH",
+                   help='shard the volume over a mesh: "z8" (1-D z slabs) '
+                        'or "z2,y4" (2-D z,y blocks); D and H must divide '
+                        "by the axis sizes")
     p.add_argument("--validate", action="store_true",
                    help="check that every instance is one 6-connected "
                         "component (ops.labels_are_connected); a failure "
                         "exits with status 3 and writes no output")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
-    for flag in _UNPORTED:
-        p.add_argument(flag, nargs="?", const=True, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for flag in _UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            p.error(f"{flag} is not ported yet (see ROADMAP.md)")
-    if args.resume_dir and not args.stream:
-        p.error("--resume-dir needs --stream")
+    for flag, given in (("--resume-dir", args.resume_dir),
+                        ("--stream-shard", args.stream_shard)):
+        if given and not args.stream:
+            p.error(f"{flag} needs --stream")
+    if args.shard and args.stream:
+        p.error("--shard shards a whole volume; with --stream use "
+                "--stream-shard")
+    mesh_spec = None
+    if args.shard:
+        mesh_spec = [(m.group(1), int(m.group(2)))
+                     for m in re.finditer(r"([zy])(\d+)", args.shard)]
+        if not mesh_spec or [a for a, _ in mesh_spec] not in (["z"],
+                                                              ["z", "y"]):
+            raise SystemExit(
+                f'bad --shard spec {args.shard!r}: use "z8" or "z2,y4"')
     cfg = load_config(args)
 
     import numpy as np
     import torch
 
     from tpuseg_torch.data.volume_io import load_volume, save_volume
-    from tpuseg_torch.infer import make_infer_fn, stream_infer
+    from tpuseg_torch.infer import (make_infer_fn, make_sharded_infer_fn,
+                                    shard_volume, stream_infer, unshard)
     from tpuseg_torch.models import build_model
+    from tpuseg_torch.parallel import Mesh
+    from tpuseg_torch.parallel.mesh import place_shards
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -121,8 +141,8 @@ def main(argv=None) -> int:
     model = build_model(cfg.model)
     model.load_state_dict(load_model_state(args.checkpoint))
     model.to(device)
-    if args.stream:
-        # the source dtype, from disk: stream_infer reads chunk by chunk
+    if args.stream or args.shard:
+        # the source dtype, from disk: read chunk by chunk or slab by slab
         volume = load_volume(args.input, mmap=True)
     else:
         volume = load_volume(args.input).astype(np.float32)
@@ -146,14 +166,26 @@ def main(argv=None) -> int:
             out = np.lib.format.open_memmap(
                 path, mode="r+" if _exists_with_shape(path, volume.shape)
                 else "w+", dtype=np.int32, shape=volume.shape)
+        mesh = None
+        if args.stream_shard:
+            mesh = Mesh(place_shards(args.stream_shard, device), ("y",))
+            print(f"--stream-shard {args.stream_shard}: {mesh}")
         stats = {}
         labels = stream_infer(model, cfg, volume, out=out,
                               chunk_z=args.stream,
                               normalize=not args.no_normalize,
                               resume_dir=args.resume_dir or None,
-                              stats=stats, device=device)
+                              stats=stats, device=device, mesh=mesh)
         print("stream stats: " + json.dumps(stats))
         diag = {"flood_truncated": stats.get("flood_truncated_voxels", 0)}
+    elif args.shard:
+        shape = tuple(n for _, n in mesh_spec)
+        mesh = Mesh(place_shards(int(np.prod(shape)), device),
+                    tuple(a for a, _ in mesh_spec), shape)
+        print(f"--shard {args.shard}: {mesh}")
+        infer = make_sharded_infer_fn(model, cfg, mesh,
+                                      normalize=not args.no_normalize)
+        labels = unshard(infer(shard_volume(volume, mesh)), mesh)
     else:
         infer = make_infer_fn(model, cfg, normalize=not args.no_normalize,
                               with_diagnostics=args.report_convergence)
@@ -163,7 +195,10 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
 
     status = 0
-    if args.report_convergence:
+    if args.report_convergence and args.shard:
+        print("--report-convergence: not wired for --shard "
+              "(use --stream or single-device)")
+    elif args.report_convergence:
         n_trunc = diag["flood_truncated"]
         print(f"flood convergence: TRUNCATED ({n_trunc} truncated voxels — "
               "raise postproc.flood_iters)" if n_trunc else

@@ -15,17 +15,25 @@ import numpy as np
 import torch
 
 
-def _percentiles(sample, lo, span, pcts, bins: int) -> np.ndarray:
-    """(len(pcts), B) float32 percentile values of each row of the (B, n)
-    ``sample``, histogrammed between its row's ``lo`` and ``lo + span``;
-    the B x ``bins`` counts come to the host in one copy."""
+def bin_counts(sample, lo, span, bins: int) -> torch.Tensor:
+    """(B, bins) int64 histogram of each row of the (B, n) ``sample`` between
+    its row's ``lo`` and ``lo + span`` (the float32 bin index of the JAX
+    package)."""
     b = sample.shape[0]
     idx = torch.clamp(((sample - lo[:, None]) / span[:, None] * bins)
                       .to(torch.int64), 0, bins - 1)
     idx = idx + torch.arange(b, device=sample.device)[:, None] * bins
-    hist = torch.bincount(idx.reshape(-1), minlength=b * bins).reshape(b, bins)
-    cdf = np.cumsum(hist.cpu().numpy().astype(np.float32)
-                    / np.float32(sample.shape[1]), axis=1, dtype=np.float32)
+    return torch.bincount(idx.reshape(-1), minlength=b * bins).reshape(b, bins)
+
+
+def percentiles_from_counts(hist, n: int, lo, span, pcts,
+                            bins: int) -> np.ndarray:
+    """(len(pcts), B) float32 percentile values from (B, bins) counts of
+    ``n`` samples a row: the float32 CDF taken sequentially on the host,
+    the counts in one copy."""
+    b = hist.shape[0]
+    cdf = np.cumsum(np.asarray(hist.cpu()).astype(np.float32)
+                    / np.float32(n), axis=1, dtype=np.float32)
     lo_h = lo.cpu().numpy().astype(np.float32)
     span_h = span.cpu().numpy().astype(np.float32)
     out = np.empty((len(pcts), b), np.float32)
@@ -35,6 +43,13 @@ def _percentiles(sample, lo, span, pcts, bins: int) -> np.ndarray:
             out[j, i] = lo_h[i] + (np.float32(k) + np.float32(0.5)) \
                 / np.float32(bins) * span_h[i]
     return out
+
+
+def _percentiles(sample, lo, span, pcts, bins: int) -> np.ndarray:
+    """(len(pcts), B) float32 percentile values of each row of the (B, n)
+    ``sample``, histogrammed between its row's ``lo`` and ``lo + span``."""
+    return percentiles_from_counts(bin_counts(sample, lo, span, bins),
+                                   sample.shape[1], lo, span, pcts, bins)
 
 
 def histogram_percentile_scalars(vol: torch.Tensor, pcts=(1.0, 99.8),

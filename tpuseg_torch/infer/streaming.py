@@ -1,7 +1,9 @@
-"""Host-streamed whole-volume inference (port of ``tpuseg/infer/streaming.py``,
-single-device leg): volumes larger than the card's memory, or than the
-2^31 voxels that int32 labels can index, go through the device in z-chunks
-with ``halo`` planes of context.
+"""Host-streamed whole-volume inference (port of ``tpuseg/infer/streaming.py``):
+volumes larger than the card's memory, or than the 2^31 voxels that int32
+labels can index, go through the device in z-chunks with ``halo`` planes
+of context; with a 1-axis ``mesh`` each chunk is split over y across its
+shards (the streamed x sharded composition, ``_make_sharded_chunk_fns``),
+with the single-device chunk's outputs.
 
 pass 1:  one host pass over the source: min/max and every
          ``normalize_sample_stride``-th x voxel, binned into the global
@@ -50,9 +52,17 @@ from tpuseg_torch.core import Config
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.infer.pipeline import make_apply_fn
 from tpuseg_torch.infer.tiles import tiled_forward
+from tpuseg_torch.ops.calibrate import fg_bin_counts
 from tpuseg_torch.ops.components import rename, union_closure
-from tpuseg_torch.ops.merge import saddle_merge_edges
+from tpuseg_torch.ops.merge import saddle_merge_core_edges, saddle_merge_edges
 from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
+from tpuseg_torch.parallel.collectives import ppermute, psum
+from tpuseg_torch.parallel.halo import exchange_halo
+from tpuseg_torch.parallel.mesh import replicas
+from tpuseg_torch.parallel.reconcile import (CHUNK_OVERFLOW, boundary_edges,
+                                             build_local_table, coord_labels,
+                                             global_lin, packed_groups,
+                                             rename_to_packed, report_overflow)
 
 
 def _chunk_histogram(vol_chunk: np.ndarray, lo: float, span: float, bins: int):
@@ -84,45 +94,49 @@ def _mask_fake(prob: torch.Tensor, mask_top: int, mask_bot: int):
     return prob
 
 
+def _chunk_probs(apply_fn, ext, lo, hi, mask_top, mask_bot, cfg: Config):
+    """Normalized net sweep of an extended chunk (or of its y-slab; the
+    normalization runs per tile block, equal elementwise to normalizing
+    first) -> (fg, peak) float32 probabilities with the fake z planes
+    zeroed."""
+    span = torch.clamp(hi - lo, min=1e-6)
+
+    def preprocess(b):
+        return torch.clamp((b - lo) / span, 0.0, 1.0)
+
+    out = tiled_forward(apply_fn, ext.float(), tile=cfg.infer.tile,
+                        halo=cfg.infer.halo, tile_batch=cfg.infer.tile_batch,
+                        compute_dtype=resolve(cfg.infer.compute_dtype),
+                        preprocess=preprocess)
+    fg = torch.sigmoid(out["fg_logits"].float())
+    pk = torch.sigmoid(out["peak_logits"].float())
+    return _mask_fake(fg, mask_top, mask_bot), _mask_fake(pk, mask_top,
+                                                          mask_bot)
+
+
+def _fg_core_counts(fg, cfg: Config, bins: int) -> torch.Tensor:
+    """int64 histogram of a core's fg probabilities over every
+    ``normalize_sample_stride``-th x voxel (the voxels the one-shot
+    calibration sees: cores partition the volume)."""
+    stride = cfg.data.normalize_sample_stride
+    return fg_bin_counts(fg[..., ::stride] if stride > 1 else fg, bins)
+
+
 def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                     calib_bins: int = 4096):
     """``(fg_hist_fn, chunk_net_fn, chunk_post_fn)``: the per-chunk device
     work of passes 1b and 2."""
     apply_fn = make_apply_fn(model, cfg)
-    compute_dtype = resolve(cfg.infer.compute_dtype)
     pp = cfg.postproc
 
     def chunk_net_fn(ext, lo, hi, mask_top, mask_bot):
-        """Normalized net sweep of the extended chunk (normalization per
-        tile block, equal elementwise to normalizing first) -> (fg, peak)
-        float32 probabilities with the fake planes zeroed."""
-        span = torch.clamp(hi - lo, min=1e-6)
-
-        def preprocess(b):
-            return torch.clamp((b - lo) / span, 0.0, 1.0)
-
-        out = tiled_forward(apply_fn, ext.float(), tile=cfg.infer.tile,
-                            halo=cfg.infer.halo,
-                            tile_batch=cfg.infer.tile_batch,
-                            compute_dtype=compute_dtype, preprocess=preprocess)
-        fg = torch.sigmoid(out["fg_logits"].float())
-        pk = torch.sigmoid(out["peak_logits"].float())
-        return _mask_fake(fg, mask_top, mask_bot), _mask_fake(pk, mask_top,
-                                                              mask_bot)
+        return _chunk_probs(apply_fn, ext, lo, hi, mask_top, mask_bot, cfg)
 
     def fg_hist_fn(ext, lo, hi, mask_top, mask_bot):
-        """int64 histogram of the core's fg probabilities over every
-        ``normalize_sample_stride``-th x voxel (the voxels the one-shot
-        calibration sees: cores partition the volume). Fake planes inside a
-        short last chunk's core land in bin 0; the caller subtracts them."""
+        """The core's fg histogram. Fake planes inside a short last chunk's
+        core land in bin 0; the caller subtracts them."""
         fg, _ = chunk_net_fn(ext, lo, hi, mask_top, mask_bot)
-        core = fg[halo:halo + chunk_z]
-        stride = cfg.data.normalize_sample_stride
-        if stride > 1:
-            core = core[..., ::stride]
-        idx = torch.clamp((core * calib_bins).to(torch.int32), 0,
-                          calib_bins - 1)
-        return torch.bincount(idx.reshape(-1).long(), minlength=calib_bins)
+        return _fg_core_counts(fg[halo:halo + chunk_z], cfg, calib_bins)
 
     def chunk_post_fn(fg, pk, fg_thr, cz):
         """Watershed of the extended chunk, cropped on the device: int32
@@ -144,10 +158,139 @@ def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
             me_lo = me_hi = torch.zeros(0, dtype=torch.int32)
         # an upper bound over overlapping windows; zero stays exact
         n_trunc = int(flood_truncation_count(labels, fg >= fg_thr))
-        core = labels[halo:halo + cz]
-        overlap = labels[halo + chunk_z] if halo > 0 else None
-        ids, counts = torch.unique(core[core > 0], return_counts=True)
-        return core, overlap, me_lo, me_hi, n_trunc, ids, counts
+        return _crop_chunk(labels, halo, chunk_z, cz) + (me_lo, me_hi,
+                                                         n_trunc)
+
+    return fg_hist_fn, chunk_net_fn, chunk_post_fn
+
+
+def _crop_chunk(labels, halo: int, chunk_z: int, cz: int):
+    """``(core, overlap, ids, counts)`` of an extended chunk's labels: the
+    ``cz`` real core planes, the overlap plane (the next chunk's first;
+    ``None`` without a halo), and the core's label ids and voxel
+    counts."""
+    core = labels[halo:halo + cz]
+    overlap = labels[halo + chunk_z] if halo > 0 else None
+    ids, counts = torch.unique(core[core > 0], return_counts=True)
+    return core, overlap, ids, counts
+
+
+def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
+                            mesh, calib_bins: int = 4096):
+    """The chunk functions of ``_make_chunk_fns`` with each extended chunk
+    split over y across a 1-axis mesh (the streamed x sharded
+    composition), with the single-device chunk's outputs: every y-shard
+    takes ``infer.shard_halo`` planes of its neighbours' rows, sweeps the
+    net, zeroes its fake y halo, runs the watershed, and builds its bounded
+    table of its core rows' and overlap plane's ids; one packed closure
+    over the y boundaries renames every instance to its smallest root
+    coordinate in the chunk (``packed_groups``, ``coord_labels``): the
+    single-device chunk's local ids, so the host's z reconciliation does
+    not see the mesh. As the single-device chunk does, the chunk sends its
+    saddle-merge edges to the host union-find instead of merging on the
+    device: each shard tests the faces of its core rows on the reconciled
+    labels, a group's maximum being the peak at its root, read by the
+    shard whose table holds the root (``saddle_merge_core_edges``); the
+    edges are the single-device chunk's wherever its labels are. (The JAX
+    package merges each y-slab on its device before the reconciliation;
+    the two agree for instances and merge chains within the halos.)"""
+    if len(mesh.axis_names) != 1:
+        raise ValueError("stream_infer(mesh=...) shards each chunk over y: "
+                         f"the mesh needs one axis, got {mesh.axis_names}")
+    n_y = mesh.size
+    halo_y = cfg.infer.shard_halo
+    cap = cfg.infer.shard_max_labels
+    pp = cfg.postproc
+    apply_fns = {d: make_apply_fn(m, cfg)
+                 for d, m in replicas(model, mesh.devices).items()}
+
+    def chunk_net_fn(ext, lo, hi, mask_top, mask_bot):
+        """Per y-shard (fg, peak) lists on the y-extended slabs, the fake z
+        planes and the fake (edge-replicated) y halos zeroed: those voxels
+        are not in the single-device chunk's watershed domain."""
+        hl = ext.shape[1] // n_y
+        slabs = exchange_halo([ext[:, i * hl:(i + 1) * hl].to(d).float()
+                               for i, d in enumerate(mesh.devices)],
+                              halo_y, dim=1)
+        fg, pk = [], []
+        for i, slab in enumerate(slabs):
+            d = slab.device
+            f, p = _chunk_probs(apply_fns[d], slab, lo.to(d), hi.to(d),
+                                mask_top, mask_bot, cfg)
+            slabs[i] = None
+            for t in (f, p):
+                if i == 0:
+                    t[:, :halo_y] = 0.0
+                if i == n_y - 1:
+                    t[:, halo_y + hl:] = 0.0
+            fg.append(f)
+            pk.append(p)
+        return fg, pk
+
+    def fg_hist_fn(ext, lo, hi, mask_top, mask_bot):
+        fg, _ = chunk_net_fn(ext, lo, hi, mask_top, mask_bot)
+        hl = ext.shape[1] // n_y
+        return psum([_fg_core_counts(f[halo:halo + chunk_z,
+                                       halo_y:halo_y + hl], cfg, calib_bins)
+                     for f in fg])
+
+    def chunk_post_fn(fg, pk, fg_thr, cz):
+        hly, W = fg[0].shape[1:]
+        hl = hly - 2 * halo_y
+        H = hl * n_y
+        dev = mesh.devices[0]
+        merging = pp.merge_saddle_ratio > 0
+        grown_p, grown_pk, tables, peaks, n_distinct = [], [], [], [], []
+        n_trunc = 0
+        for i in range(n_y):
+            lab = watershed(fg[i], pk[i], peak_threshold=pp.peak_threshold,
+                            fg_threshold=fg_thr, peak_radius=pp.nms_radius,
+                            flood_iters=pp.flood_iters, method=pp.method,
+                            nms_impl=pp.nms_impl,
+                            resolve_impl=pp.resolve_impl, label_space="index")
+            n_trunc += int(flood_truncation_count(lab, fg[i] >= fg_thr))
+            fg[i] = None
+            # the full extended z range (the chunk's crops come after): the
+            # core rows and the overlap row, the next shard's first
+            grown = lab[:, halo_y:halo_y + hl + (n_y > 1)]
+            table, _, nd = build_local_table(
+                grown[:, :hl], [grown[:, hl]] if n_y > 1 else [], cap)
+            tables.append(table)
+            n_distinct.append(nd)
+            grown_p.append(rename_to_packed(grown, table, i, cap))
+            if merging:
+                peaks.append(pk[i].reshape(-1)[table.long() - 1])
+                grown_pk.append(pk[i][:, halo_y:halo_y + grown.shape[1]])
+            pk[i] = None
+        report_overflow(n_distinct, cap, CHUNK_OVERFLOW)
+        keys = [global_lin(t, hly, (0, i * hl - halo_y), H, W)
+                for i, t in enumerate(tables)]
+        edges = []
+        if n_y > 1:
+            theirs = ppermute([p[:, hl] for p in grown_p],
+                              [(j, j + 1) for j in range(n_y - 1)])
+            edges = [boundary_edges(grown_p[j][:, 0], theirs[j])
+                     for j in range(1, n_y)]
+        # every group renamed to its smallest root coordinate in the chunk
+        group, gmin, gval = packed_groups(keys, edges, cap, n_y,
+                                          peaks if merging else None)
+        coord = torch.from_numpy(coord_labels(gmin)).to(dev)
+        group = torch.from_numpy(group).to(dev)
+        parts = [group[p.to(dev).long()] for p in grown_p]
+        labels = torch.cat([coord[p[:, :hl].long()] for p in parts], dim=1)
+        me_lo = me_hi = torch.zeros(0, dtype=torch.int32, device=dev)
+        if merging:
+            # as the single-device chunk, the passing edges go to the host
+            # union-find; each shard tests the faces of its core rows
+            basin_peak = torch.from_numpy(gval).to(dev)
+            e = [saddle_merge_core_edges(
+                p, q.to(dev), (p.shape[0], hl, W), pp.merge_saddle_ratio,
+                basin_peak, max_pairs=pp.merge_max_pairs)
+                for p, q in zip(parts, grown_pk)]
+            me_lo = coord[torch.cat([lo for lo, _ in e]).long()]
+            me_hi = coord[torch.cat([hi for _, hi in e]).long()]
+        return _crop_chunk(labels, halo, chunk_z, cz) + (me_lo, me_hi,
+                                                         n_trunc)
 
     return fg_hist_fn, chunk_net_fn, chunk_post_fn
 
@@ -285,19 +428,24 @@ def stream_infer(
     counts what the caller still holds, such as the model, and nothing the
     caller freed before).
 
+    ``mesh``: a 1-axis ``parallel.Mesh``; each extended chunk is then split
+    over y across its shards (``infer.shard_halo`` rows of context each
+    side, ``H`` a multiple of the shard count) and the result equals the
+    single-device stream's for instances within the halos. The chunk
+    goes to the mesh's first device and its y-slabs to theirs; ``device``
+    is not used.
+
     ``overlap=False`` runs the chunks' copies in sequence with their compute
     (the version ``chip_smoke.py`` times the overlapped one against); on a
-    CPU device they always are. ``mesh`` (chunks sharded over several
-    devices) is not ported yet.
+    CPU device they always are.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "stream_infer(mesh=...) is not ported yet: the streamed x "
-            "sharded composition waits for ROADMAP.md Queue 1 item 6 "
-            "(sharded and multi-process inference)")
+        device = mesh.devices[0]
     device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    cards = ({d for d in mesh.devices if d.type == "cuda"} if mesh is not None
+             else {device} if device.type == "cuda" else set())
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     marks = {}
 
     def mark(key):
@@ -320,7 +468,7 @@ def stream_infer(
             "linear-index range of chunk labels; lower chunk_z or halo")
 
     geom = dict(D=D, H=H, W=W, chunk_z=chunk_z, halo=halo, bins=bins,
-                sharded=0)
+                sharded=int(mesh is not None))
     resume_meta = None
     if resume_dir is not None:
         os.makedirs(resume_dir, exist_ok=True)
@@ -344,8 +492,15 @@ def stream_infer(
         lo, hi = np.float32(0.0), np.float32(1.0)
     lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
     hi_t = torch.tensor(hi, dtype=torch.float32, device=device)
-    fg_hist_fn, chunk_net_fn, chunk_post_fn = _make_chunk_fns(
-        model, cfg, halo, chunk_z, bins)
+    if mesh is None:
+        fg_hist_fn, chunk_net_fn, chunk_post_fn = _make_chunk_fns(
+            model, cfg, halo, chunk_z, bins)
+    else:
+        if H % mesh.size:
+            raise ValueError(f"volume H={H} must divide the mesh's "
+                             f"{mesh.size} y-shards")
+        fg_hist_fn, chunk_net_fn, chunk_post_fn = _make_sharded_chunk_fns(
+            model, cfg, halo, chunk_z, mesh, bins)
     upload = _Uploader(volume, chunks, halo, ext_z, device, overlap)
     mark("t_calibrate_pass")
 
@@ -481,7 +636,7 @@ def stream_infer(
             del ext
             if ci + 1 < len(chunks):
                 staged = upload(ci + 1)   # copies under this chunk's kernels
-            core, overlap_plane, me_lo, me_hi, n_trunc, ids, counts = \
+            core, overlap_plane, ids, counts, me_lo, me_hi, n_trunc = \
                 chunk_post_fn(fg, pk, fg_thr, cz)
             del fg, pk
             n_trunc_total += n_trunc
@@ -506,8 +661,9 @@ def stream_infer(
     if stats is not None:
         if n_trunc_total:
             stats["flood_truncated_voxels"] = n_trunc_total
-        if device.type == "cuda":
-            stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        if cards:
+            stats["peak_device_bytes"] = max(
+                torch.cuda.max_memory_allocated(d) for d in cards)
 
     mark("t_finalize")
     # ---- finalize: union roots, global size filter, dense compaction ----

@@ -27,11 +27,25 @@ def threshold_for_fraction(prob: torch.Tensor, fraction: float,
     prob = prob.float()
     if sample_stride > 1:
         prob = prob[..., ::sample_stride]
-    idx = torch.clamp((prob * bins).to(torch.int64), 0, bins - 1)
-    hist = torch.bincount(idx.reshape(-1), minlength=bins)
+    return threshold_from_counts(fg_bin_counts(prob, bins), prob.numel(),
+                                 fraction)
+
+
+def fg_bin_counts(prob: torch.Tensor, bins: int = 4096) -> torch.Tensor:
+    """int64 ``bins``-bin histogram of probabilities in [0, 1]."""
+    idx = torch.clamp((prob.float() * bins).to(torch.int64), 0, bins - 1)
+    return torch.bincount(idx.reshape(-1), minlength=bins)
+
+
+def threshold_from_counts(hist: torch.Tensor, n: int,
+                          fraction: float) -> torch.Tensor:
+    """The threshold of ``threshold_for_fraction`` from a histogram of
+    ``n`` probabilities (exact integer counts, float32 fractions): the
+    sharded path sums its shards' counts into one."""
+    bins = hist.numel()
     # survival fraction: share of voxels with prob >= bin edge
     tail = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,)).float() \
-        / prob.numel()
+        / n
     b = (tail >= fraction).sum().float()
     return torch.clamp((b - 0.5) / bins, 0.0, 1.0)
 

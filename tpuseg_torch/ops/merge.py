@@ -31,11 +31,16 @@ _KEY_SHIFT = 31
 
 def saddle_merge_axis_edges(labels: torch.Tensor, peak_prob: torch.Tensor,
                             ratio: float, axis: int,
-                            max_pairs: int = 1 << 17):
+                            max_pairs: int = 1 << 17, basin_peak=None):
     """The passing merge edges across faces along ``axis``: int32
     ``(lo, hi)`` label pairs, ascending by ``(lo, hi)``. At most
     ``max_pairs`` distinct adjacent pairs are tested; beyond that the
-    largest ``(lo, hi)`` pairs are dropped, with a warning."""
+    largest ``(lo, hi)`` pairs are dropped, with a warning.
+
+    A basin's maximum is ``basin_peak[label - 1]``: by default the peak at
+    its root (``peak_prob``'s linear index ``label - 1``); the sharded paths
+    pass their groups' maxima, since their labels are not root indices into
+    ``peak_prob``."""
     n = labels.shape[axis]
     a, b = labels.narrow(axis, 0, n - 1), labels.narrow(axis, 1, n - 1)
     face = (a > 0) & (b > 0) & (a != b)
@@ -58,9 +63,9 @@ def saddle_merge_axis_edges(labels: torch.Tensor, peak_prob: torch.Tensor,
                                    include_self=False)
     lo = (pairs >> _KEY_SHIFT).to(torch.int32)
     hi = (pairs & ((1 << _KEY_SHIFT) - 1)).to(torch.int32)
-    # basin maxima: the peak at each root voxel (label - 1)
-    flat = peak.reshape(-1)
-    floor = torch.minimum(flat[lo.long() - 1], flat[hi.long() - 1])
+    if basin_peak is None:
+        basin_peak = peak.reshape(-1)
+    floor = torch.minimum(basin_peak[lo.long() - 1], basin_peak[hi.long() - 1])
     passing = saddle >= torch.tensor(ratio, dtype=torch.float32,
                                      device=floor.device) * floor
     return lo[passing], hi[passing]
@@ -74,6 +79,29 @@ def saddle_merge_edges(labels: torch.Tensor, peak_prob: torch.Tensor,
     streamed path lifts these to global ids and closes them on the host."""
     parts = [saddle_merge_axis_edges(labels, peak_prob, ratio, a, max_pairs)
              for a in range(3)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def saddle_merge_core_edges(labels: torch.Tensor, peak_prob: torch.Tensor,
+                            core, ratio: float, basin_peak: torch.Tensor,
+                            max_pairs: int = 1 << 17):
+    """The passing merge edges over the faces whose first voxel lies in a
+    shard's core: the first ``core[d]`` planes along each dim ``d`` of
+    ``labels`` and ``peak_prob``, which reach one plane further along a dim
+    where a neighbour's core follows (that neighbour's first plane). Each
+    axis tests the core grown along that axis only, so every face of the
+    volume is tested by one shard, and a pair passes iff it passes on some
+    shard. ``basin_peak`` as in ``saddle_merge_axis_edges``. Returns int32
+    ``(e_lo, e_hi)``, axis 0's first."""
+    parts = []
+    for axis in range(3):
+        lab, pk = labels, peak_prob
+        for d, n in enumerate(core):
+            if d != axis:
+                lab, pk = lab.narrow(d, 0, n), pk.narrow(d, 0, n)
+        parts.append(saddle_merge_axis_edges(lab, pk, ratio, axis, max_pairs,
+                                             basin_peak))
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
 
