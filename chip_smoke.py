@@ -139,13 +139,33 @@ Phases, in order; any failure raises and exits non-zero:
     AnalyticNet in float32 on phase 14's stack (else a 180x1024x1024 one),
     equal to the single-device stream at merge 0 and 0.8, then
     ``cli.infer --stream 96 --stream-shard 4`` once with phase 9's
-    checkpoint.
+    checkpoint;
+16. (run after phase 9, with its checkpoint) the multi-process runtime,
+    worker processes started by this script (``--worker``) under the
+    ``TPUSEG_*`` environment, every one on ``cuda:0``; NCCL refuses two
+    ranks on one device, so the two-process legs run gloo
+    (``TPUSEG_DIST_BACKEND``): (a) 5 data-parallel steps of the flagship
+    net (bf16, fused apply, batch 8 of 64^3 split 4 + 4): both ranks' states
+    bitwise equal after each step, step 1 within 2.5 lr of the
+    single-process step on the same 8 examples, each loss within 1% of the
+    single-process one, K6 11 launches a rank a step, ms per step per rank
+    beside the all-reduces' share; (b) ``cli.train`` as 2 processes, 10
+    steps then ``--resume`` to 20: one writer, one checkpoint directory;
+    (c) ``cli.infer --shard z2`` and (d) ``--stream 48 --stream-shard 2``
+    (``nms_impl="pallas"``) as 2 processes with phase 9's checkpoint,
+    calibrated, fused apply, ``--validate``: labels equal to the
+    single-process call's elementwise, K1, K5 and K4 per process as the
+    shards' tiles give them, wall time and peak device memory per process
+    beside the single-process call's; (e) NCCL on a group of one: (a)'s DP
+    step equal to the step without a group, bitwise, and ``--shard z2``
+    equal to (c)'s single-process labels.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-15 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-16 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
-path of phase 14 and on the sharded paths of phase 15, and its bound: the
+path of phase 14, on the sharded paths of phase 15 and in the worker
+processes of phase 16, and its bound: the
 larger of its bytes over the card's memory rate and its operations over
 the card's peak rate, from this run's shapes) and
 nvidia-smi's ``name, power.limit``; the last line is
@@ -239,6 +259,10 @@ STREAM_MIN_FREE_GB = 32
 STREAM_CHUNK = 96
 STREAM_KERNELS = INFER_KERNELS + ("fused_convblock", "fused_peak_nms")
 SHARDED_KERNELS = STREAM_KERNELS        # K1-K5: phase 15's sharded runs
+MP_DP_STEPS = 5                         # phase 16: DP steps of (a)
+MP_DP_NORM_RTOL = 5e-3                  # (a) step 1: gradient norm, bf16
+MP_DP_GRAD_RTOL = 1e-3                  # (a) step 1 in f32: gradient, L2
+MP_STREAM_CHUNK = 48                    # phase 16 (d): two chunks of the stack
 
 
 class AnalyticNet(nn.Module):
@@ -2114,6 +2138,568 @@ def phase_sharded(sv, stream_sv, ckpt_dir: str, vol_path: str,
     return acc
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def _dp_config(dtype: str = "bfloat16"):
+    """Phase 16's training configuration: the flagship net (32/64/128/256,
+    head 32, bf16), fused apply, batch 8 of 64^3, lr 1e-3 with one warmup
+    step (the first step runs at the full rate, as in the reference's DP
+    tests)."""
+    from tpuseg_torch.core import Config
+
+    return Config().override(**{
+        "model.compute_dtype": dtype, "train.apply_impl": "fused",
+        "train.lr": 1e-3, "train.warmup_steps": 1,
+        "train.total_steps": MP_DP_STEPS})
+
+
+def _dp_batch(tmp: str, i: int) -> dict:
+    """(a)'s global batch of step ``i + 1`` (host arrays)."""
+    batches = np.load(os.path.join(tmp, "dp_batches.npz"))
+    return {k[3:]: batches[k] for k in batches.files
+            if k.startswith(f"{i:02d}_")}
+
+
+def _f32_first_step(tmp: str, dp: bool):
+    """(a)'s first step in float32 from the same weights and batch, where
+    the sums' order leaves the averaged gradient far closer to the
+    single-process one than bf16 rounding does: the gradient the optimizer
+    is given (flattened, on the host) and its norm; under DP (``dp``) on
+    this rank's 4 examples."""
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.train import (create_train_state, make_data_mesh,
+                                    make_dp_train_step, make_train_step,
+                                    shard_batch)
+
+    cfg = _dp_config("float32")
+    model = build_model(cfg.model)
+    model.load_state_dict(torch.load(os.path.join(tmp, "dp_init.pt"),
+                                     weights_only=True))
+    model.cuda().train()
+    state = create_train_state(model, cfg)
+    grads, update = [], state.opt.update
+
+    def kept(params, g, gnorm):        # the gradient AdamW is given
+        grads.append(torch.cat([v.reshape(-1) for v in g.values()]).cpu())
+        return update(params, g, gnorm)
+
+    state.opt.update = kept
+    batch = _dp_batch(tmp, 0)
+    if dp:
+        mesh = make_data_mesh()
+        m = make_dp_train_step(model, cfg, mesh)(
+            state, shard_batch(batch, mesh), 1)
+    else:
+        m = make_train_step(model, cfg)(state, {
+            k: torch.from_numpy(v).cuda() for k, v in batch.items()}, 1)
+    return grads[0], float(m["grad_norm"])
+
+
+def _state_digest(model) -> str:
+    """SHA-256 of every parameter's and running statistic's bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+class _CollectiveTimer:
+    """Wall seconds inside the data-parallel all-reduces (the gradient and
+    metric buffer of ``train/step.py``, the BatchNorm statistics of
+    ``models/blocks.py``), the card synchronized first so that earlier
+    kernels are not billed to them."""
+
+    def __init__(self):
+        import tpuseg_torch.models.blocks as blocks
+        import tpuseg_torch.train.step as step
+
+        self.seconds = {"grad": 0.0, "bn": 0.0}
+        for key, mod in (("grad", step), ("bn", blocks)):
+            mod.group_mean = self._timed(key, mod.group_mean)
+
+    def _timed(self, key, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def take(self) -> dict:
+        out = dict(self.seconds)
+        self.seconds = dict.fromkeys(out, 0.0)
+        return out
+
+
+def _mp_worker_dp(tmp: str) -> dict:
+    """(a) in one process: the DP steps of phase 16 on this rank's 4 of
+    the 8 examples, per step its loss, gradient norm, wall ms, all-reduce
+    seconds and the digest of its state; K6's launches over the steps;
+    rank 0 saves the state of step 1 and the averaged gradient of step 1
+    in float32 (run after the steps)."""
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.train import (create_train_state, make_data_mesh,
+                                    make_dp_train_step, shard_batch)
+
+    cfg = _dp_config()
+    model = build_model(cfg.model)
+    model.load_state_dict(torch.load(os.path.join(tmp, "dp_init.pt"),
+                                     weights_only=True))
+    model.cuda().train()
+    state = create_train_state(model, cfg)
+    mesh = make_data_mesh()
+    step = make_dp_train_step(model, cfg, mesh)
+    timer = _CollectiveTimer()
+    rank = mesh.local_ranks()[0]
+    _reset_launches()
+    rec = {"steps": []}
+    for i in range(MP_DP_STEPS):
+        local = shard_batch(_dp_batch(tmp, i), mesh)
+        torch.cuda.synchronize()
+        timer.take()
+        t0 = time.perf_counter()
+        m = step(state, local, 1)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        rec["steps"].append({"loss": loss, "grad_norm": gnorm, "ms": ms, **{
+            f"{k}_ms": 1e3 * s for k, s in timer.take().items()},
+            "digest": _state_digest(model)})
+        if i == 0 and rank == 0:
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       os.path.join(tmp, "dp_step1.pt"))
+    rec["launches"] = _launches()
+    rec["mma_launches"] = _mma_launches()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, state, step
+    grads, rec["f32_grad_norm"] = _f32_first_step(tmp, dp=True)
+    if rank == 0:
+        torch.save(grads, os.path.join(tmp, "dp_grads1_f32.pt"))
+    return rec
+
+
+def _mp_worker_cli(tmp: str) -> dict:
+    """(c), (d) in one process: each ``cli.infer`` run named in
+    ``DIR/cli_runs.json`` through its entry point, with its status, wall
+    seconds, peak device memory, kernel launches and printed lines."""
+    import contextlib
+    import io
+
+    from tpuseg_torch.cli import infer as cli_infer
+
+    with open(os.path.join(tmp, "cli_runs.json")) as f:
+        runs = json.load(f)
+    rec = {}
+    for tag, argv in runs.items():
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            status = cli_infer.main(argv)
+        torch.cuda.synchronize()
+        rec[tag] = {"status": status, "wall": time.perf_counter() - t0,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": _launches(), "mma_launches": _mma_launches(),
+                    "tile_launches": _tile_launches(),
+                    "printed": buf.getvalue()}
+    return rec
+
+
+def _mp_worker_nccl(tmp: str) -> dict:
+    """(e): on a group of one (NCCL), one DP step of (a)'s configuration
+    beside the step without a group on the same weights and batch, and
+    the ``cli.infer`` runs of ``DIR/cli_runs.json``."""
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.train import (create_train_state, make_data_mesh,
+                                    make_dp_train_step, make_train_step,
+                                    shard_batch)
+
+    cfg = _dp_config()
+    batch = _dp_batch(tmp, 0)
+    digests, losses = [], []
+    for grouped in (True, False):
+        model = build_model(cfg.model)
+        model.load_state_dict(torch.load(os.path.join(tmp, "dp_init.pt"),
+                                         weights_only=True))
+        model.cuda().train()
+        state = create_train_state(model, cfg)
+        if grouped:
+            mesh = make_data_mesh()
+            m = make_dp_train_step(model, cfg, mesh)(
+                state, shard_batch(batch, mesh), 1)
+        else:
+            m = make_train_step(model, cfg)(state, {
+                k: torch.from_numpy(v).cuda() for k, v in batch.items()}, 1)
+        losses.append(float(m["loss"]))
+        digests.append(_state_digest(model))
+        del model, state
+        torch.cuda.empty_cache()
+    return {"digests": digests, "losses": losses, **_mp_worker_cli(tmp)}
+
+
+MP_WORKERS = {"dp": _mp_worker_dp, "cli": _mp_worker_cli,
+              "nccl": _mp_worker_nccl}
+
+
+def mp_worker(leg: str, tmp: str) -> None:
+    """``chip_smoke.py --worker LEG DIR``: one process of phase 16, started
+    by it under the ``TPUSEG_*`` environment; writes its record to
+    ``DIR/<leg>_rank<r>.json``."""
+    from tpuseg_torch.parallel.multihost import (backend, initialize,
+                                                 process_count,
+                                                 process_device,
+                                                 process_index, shutdown)
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: chip_smoke.py needs a GPU")
+    initialize(device="cuda")
+    rank = process_index()
+    print(f"[16] worker {leg}: process {rank}/{process_count()} on "
+          f"{process_device()}, backend {backend()}", flush=True)
+    rec = MP_WORKERS[leg](tmp)
+    rec.update(device=str(process_device()), backend=backend())
+    with open(os.path.join(tmp, f"{leg}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    shutdown()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(argv, n: int, tmp: str, backend=None, timeout: int = 300):
+    """``python3 argv`` as ``n`` processes of one group on this host
+    (``TPUSEG_COORDINATOR`` / ``TPUSEG_NUM_PROCESSES`` /
+    ``TPUSEG_PROCESS_ID``, and ``TPUSEG_DIST_BACKEND`` when given), every
+    one on ``cuda:0`` with one card; their outputs, echoed. Any process
+    that fails or outlives ``timeout`` fails the phase, and every process
+    is ended before this returns."""
+    import sys
+
+    env = dict(os.environ, TPUSEG_COORDINATOR=f"127.0.0.1:{_free_port()}",
+               TPUSEG_NUM_PROCESSES=str(n))
+    env.pop("TPUSEG_DIST_BACKEND", None)
+    if backend:
+        env["TPUSEG_DIST_BACKEND"] = backend
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(tmp, f"proc{r}.log"), "w+") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=here,
+                              env=dict(env, TPUSEG_PROCESS_ID=str(r)),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(n)]
+    try:
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+        print("".join(f"       | {r}: {line}\n"
+                      for line in outs[-1].splitlines()[-12:]), end="")
+        if p.returncode != 0:
+            raise AssertionError(f"[16] process {r} of {argv} exited "
+                                 f"{p.returncode}:\n{outs[-1][-4000:]}")
+    return outs
+
+
+def _worker_records(leg: str, tmp: str, n: int) -> list:
+    out = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"{leg}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _sum_launches(acc: dict, recs) -> None:
+    for rec in recs:
+        _add_launches(acc, rec["launches"])
+
+
+def phase_mp_dp(tmp: str, acc: dict) -> str:
+    """(a) DP training at full width in 2 processes on gloo (both on
+    ``cuda:0``), against the single-process steps on the same batches."""
+    from tpuseg_torch.data import PatchSampler, synthesize_volume
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.train import create_train_state, make_train_step
+
+    cfg = _dp_config()
+    vols = [synthesize_volume(shape=(64, 128, 128), num_instances=16, seed=s)
+            for s in (0, 1)]
+    sampler = PatchSampler(vols, patch_size=cfg.data.patch_size,
+                           batch_size=cfg.data.batch_size,
+                           max_instances=cfg.data.max_instances, seed=SEED)
+    batches = [sampler.next_batch() for _ in range(MP_DP_STEPS)]
+    np.savez(os.path.join(tmp, "dp_batches.npz"),
+             **{f"{i:02d}_{k}": v for i, b in enumerate(batches)
+                for k, v in b.items()})
+    init = build_model(cfg.model, seed=SEED).state_dict()
+    torch.save(init, os.path.join(tmp, "dp_init.pt"))
+
+    model = build_model(cfg.model)
+    model.load_state_dict(init)
+    model.cuda().train()
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    single, single_ms = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, {k: torch.from_numpy(v).cuda() for k, v in b.items()},
+                 1)
+        single.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            norm1 = float(m["grad_norm"])
+            step1 = {k: v.detach().cpu().clone() for k, v in
+                     model.state_dict().items()}
+    del model, state, step
+    want, want_norm = _f32_first_step(tmp, dp=False)
+    torch.cuda.empty_cache()
+
+    run_group([os.path.abspath(__file__), "--worker", "dp", tmp], 2, tmp,
+              backend="gloo")
+    recs = _worker_records("dp", tmp, 2)
+    _sum_launches(acc, recs)
+    for i in range(MP_DP_STEPS):
+        a, b = (r["steps"][i] for r in recs)
+        if a["digest"] != b["digest"] or a["loss"] != b["loss"]:
+            raise AssertionError(f"[16a] step {i + 1}: the ranks' states "
+                                 "differ")
+        if abs(a["loss"] - single[i]) > 0.01 * abs(single[i]):
+            raise AssertionError(f"[16a] step {i + 1}: DP loss {a['loss']} "
+                                 f"vs single-process {single[i]}")
+    got = torch.load(os.path.join(tmp, "dp_step1.pt"), weights_only=True)
+    worst = max(float((got[k] - step1[k]).abs().max()) for k in step1
+                if k.endswith(("weight", "bias")))
+    # Adam's first update moves each element by +-lr whatever the gradient's
+    # size, so the parameters bound only its signs; the gradient's norm and,
+    # in float32, the averaged gradient itself are held to the single-process
+    # step's (in bf16 the rounding hides a BatchNorm backward left unsynced)
+    norm_err = abs(recs[0]["steps"][0]["grad_norm"] - norm1) / norm1
+    grads = torch.load(os.path.join(tmp, "dp_grads1_f32.pt"),
+                       weights_only=True)
+    grad_err = float((grads - want).norm() / want.norm())
+    print(f"[16a] step 1: parameters within {worst / cfg.train.lr:.3f} lr "
+          f"(bound 2.5); gradient norm {recs[0]['steps'][0]['grad_norm']:.6f}"
+          f" vs {norm1:.6f}, relative {norm_err:.2e} (bound "
+          f"{MP_DP_NORM_RTOL}); in float32 the averaged gradient "
+          f"{grad_err:.3e} from the single-process step's in relative L2 "
+          f"(bound {MP_DP_GRAD_RTOL}), norms {recs[0]['f32_grad_norm']:.6f} "
+          f"vs {want_norm:.6f}", flush=True)
+    if worst >= 2.5 * cfg.train.lr:
+        raise AssertionError(f"[16a] step 1: a parameter {worst:.2e} from "
+                             "the single-process step (bound 2.5 lr)")
+    if norm_err >= MP_DP_NORM_RTOL or grad_err >= MP_DP_GRAD_RTOL:
+        raise AssertionError(f"[16a] step 1: gradient norm {norm_err:.2e} "
+                             "from the single-process step's, float32 "
+                             f"gradient {grad_err:.3e} (relative L2)")
+    for r, rec in enumerate(recs):
+        if rec["launches"]["conv3x3_raw"] != 11 * MP_DP_STEPS:
+            raise AssertionError(f"[16a] rank {r}: K6 launched "
+                                 f"{rec['launches']['conv3x3_raw']} times, "
+                                 f"want 11 x {MP_DP_STEPS}")
+        warm = rec["steps"][1:]
+        ms = float(np.median([s["ms"] for s in warm]))
+        grad = float(np.median([s["grad_ms"] for s in warm]))
+        bn = float(np.median([s["bn_ms"] for s in warm]))
+        print(f"[16a] rank {r} ({rec['device']}, backend {rec['backend']}): "
+              f"{MP_DP_STEPS} DP steps of 4 + 4 examples, bf16, fused; step "
+              f"ms {[round(s['ms'], 1) for s in rec['steps']]}, warm median "
+              f"{ms:.1f} ms, of which the gradient all-reduce {grad:.1f} ms "
+              f"({100 * grad / ms:.1f}%) and the BatchNorm statistics' "
+              f"{bn:.1f} ms ({100 * bn / ms:.1f}%); K6 "
+              f"{rec['launches']['conv3x3_raw']} launches "
+              f"({rec['mma_launches']['conv3x3_raw']} on the tensor cores); "
+              f"peak device memory {rec['peak_gb']:.2f} GB", flush=True)
+    print(f"[16a] states bitwise equal on both ranks after each step; losses "
+          f"{[round(s['loss'], 5) for s in recs[0]['steps']]} vs "
+          f"single-process {[round(x, 5) for x in single]} (within 1%); "
+          f"single-process step ms "
+          f"{[round(x, 1) for x in single_ms]}")
+    return os.path.join(tmp, "dp_init.pt")
+
+
+def phase_mp_train_cli(tmp: str) -> None:
+    """(b) ``cli.train`` as 2 processes (gloo, both on ``cuda:0``) under
+    (a)'s configuration: 10 steps, then ``--resume`` to 20."""
+    ck = os.path.join(tmp, "mp_ckpt")
+    log = os.path.join(tmp, "mp_train.jsonl")
+    argv = ["-m", "tpuseg_torch.cli.train", "--synthetic", "2", "--log", log,
+            "--set", 'train.apply_impl="fused"', "--set", "train.lr=0.001",
+            "--set", "train.warmup_steps=1", "--set", "train.log_every=5",
+            "--set", "train.ckpt_every=10",
+            "--set", f"train.ckpt_dir={json.dumps(ck)}"]
+    t0 = time.perf_counter()
+    outs = run_group(argv + ["--set", "train.total_steps=10"], 2, tmp,
+                     backend="gloo")
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_group(argv + ["--resume", "--set", "train.total_steps=20"], 2, tmp,
+              backend="gloo")
+    second = time.perf_counter() - t0
+    recs = _read_jsonl(log)
+    entries = sorted(os.listdir(ck))
+    if [r["step"] for r in recs] != [5, 10, 15, 20] or entries != [
+            "10", "20", "config.json"]:
+        raise AssertionError(f"[16b] log steps {[r['step'] for r in recs]}, "
+                             f"checkpoint directory {entries}")
+    for r, out in enumerate(outs):
+        if f"process {r}/2 on cuda:0, backend gloo" not in out:
+            raise AssertionError(f"[16b] process {r} printed no runtime line")
+    print(f"[16b] cli.train in 2 processes (gloo, cuda:0): 10 steps "
+          f"({first:.1f} s incl. start-up), --resume 10 -> 20 ({second:.1f} "
+          f"s); one writer: log steps {[r['step'] for r in recs]}, losses "
+          f"{[round(r['loss'], 4) for r in recs]}, Mvox/s "
+          f"{[round(r['mvox_per_s'], 3) for r in recs]}, checkpoint "
+          f"directory {entries}")
+
+
+def _infer_argv(ckpt_dir, vol_path, ann_path, out, extra):
+    return ["--checkpoint", ckpt_dir, "--input", vol_path, "--output", out,
+            "--calibrate-from", ann_path, "--validate", "--set",
+            'infer.apply_impl="fused"', *extra]
+
+
+def phase_mp_infer(sv, ckpt_dir: str, vol_path: str, ann_path: str,
+                   tmp: str, acc: dict) -> np.ndarray:
+    """(c) ``cli.infer --shard z2`` and (d) ``--stream 48 --stream-shard 2``
+    (with ``nms_impl="pallas"``) in 2 processes on gloo, one shard each,
+    against the single-process calls with the same flags."""
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.infer.tiles import tile_grid
+
+    legs = {"shard": ("--shard", "z2"),
+            "stream": ("--stream", str(MP_STREAM_CHUNK), "--stream-shard",
+                       "2", "--set", 'postproc.nms_impl="pallas"')}
+    single, runs = {}, {}
+    for tag, extra in legs.items():
+        out = os.path.join(tmp, f"mp_single_{tag}.npy")
+        wall, _, labels, peak, launches, _ = _cli_labels(
+            _infer_argv(ckpt_dir, vol_path, ann_path, out, extra),
+            f"single-process {tag}")
+        single[tag] = (labels, wall, peak, launches)
+        runs[tag] = _infer_argv(ckpt_dir, vol_path, ann_path,
+                                os.path.join(tmp, f"mp_two_{tag}.npy"), extra)
+    with open(os.path.join(tmp, "cli_runs.json"), "w") as f:
+        json.dump(runs, f)
+    torch.cuda.empty_cache()
+    run_group([os.path.abspath(__file__), "--worker", "cli", tmp], 2, tmp,
+              backend="gloo")
+    recs = _worker_records("cli", tmp, 2)
+    _sum_launches(acc, [r[t] for r in recs for t in legs])
+    cfg = Config()
+    D, H, W = MAIN_SHAPE
+    halo = cfg.infer.shard_halo
+    n_chunks = -(-D // MP_STREAM_CHUNK)
+    # (K1, K5, K4) a process: (d)'s seeds come from K5 (nms_impl="pallas")
+    want = {"shard": (1, 0, 3 * len(tile_grid((D // 2 + 2 * halo, H, W),
+                                              cfg.infer.tile))),
+            "stream": (0, n_chunks, 3 * len(tile_grid(
+                (MP_STREAM_CHUNK + 2 * halo, H // 2 + 2 * halo, W),
+                cfg.infer.tile)) * n_chunks * 2)}
+    for tag in legs:
+        labels, wall, peak, launches = single[tag]
+        got = np.load(runs[tag][runs[tag].index("--output") + 1])
+        same = np.array_equal(got, labels)
+        m = f1_iou50_on_card(got, sv.labels)
+        print(f"[16{'c' if tag == 'shard' else 'd'}] cli.infer "
+              f"{' '.join(legs[tag][:4])} in 2 processes (gloo, one shard "
+              f"each) {'==' if same else '!='} the single-process call "
+              f"elementwise; {m['n_pred']} instances, F1@IoU0.5 "
+              f"{m['f1']:.4f}; single-process wall {wall:.3f} s, peak "
+              f"{peak:.2f} GB", flush=True)
+        if not same:
+            raise AssertionError(f"[16] {tag}: 2 processes != 1 on "
+                                 f"{int((got != labels).sum())} voxels")
+        for r, rec in enumerate(recs):
+            run = rec[tag]
+            k1, k5, k4 = (run["launches"][k] for k in (
+                "seed_chase_pass", "fused_peak_nms", "fused_convblock"))
+            print(f"       process {r}: status {run['status']}, wall "
+                  f"{run['wall']:.3f} s, peak {run['peak_gb']:.2f} GB; "
+                  f"launches {run['launches']}, K4 on the tensor cores "
+                  f"{run['mma_launches']['fused_convblock']}")
+            if run["status"] != 0 or ("connectivity validation: OK" in
+                                      run["printed"]) != (r == 0):
+                raise AssertionError(f"[16] {tag}: process {r} status "
+                                     f"{run['status']} or its validation "
+                                     "line")
+            if (k1, k5, k4) != want[tag] or run["mma_launches"][
+                    "fused_convblock"] != k4:
+                raise AssertionError(f"[16] {tag}: process {r} K1 {k1}, K5 "
+                                     f"{k5}, K4 {k4} (want {want[tag]}, all "
+                                     "K4 on the tensor cores)")
+    return single["shard"][0]
+
+
+def phase_mp_nccl(ckpt_dir: str, vol_path: str, ann_path: str, tmp: str,
+                  shard_labels: np.ndarray, acc: dict) -> None:
+    """(e) NCCL on a group of one: (a)'s DP step through the group ==
+    the step without it, bitwise; ``--shard z2`` through the backend's
+    collectives == the labels without a group."""
+    with open(os.path.join(tmp, "cli_runs.json"), "w") as f:
+        json.dump({"shard": _infer_argv(
+            ckpt_dir, vol_path, ann_path,
+            os.path.join(tmp, "mp_nccl_shard.npy"), ("--shard", "z2"))}, f)
+    run_group([os.path.abspath(__file__), "--worker", "nccl", tmp], 1, tmp)
+    (rec,) = _worker_records("nccl", tmp, 1)
+    _sum_launches(acc, [rec["shard"]])
+    same = np.array_equal(np.load(os.path.join(tmp, "mp_nccl_shard.npy")),
+                          shard_labels)
+    equal = rec["digests"][0] == rec["digests"][1]
+    print(f"[16e] world size 1, backend {rec['backend']}: DP step through "
+          f"the group {'==' if equal else '!='} the step without one, "
+          f"bitwise (loss {rec['losses'][0]:.6f} / {rec['losses'][1]:.6f}); "
+          f"cli.infer --shard z2 "
+          f"{'==' if same else '!='} the labels without a group (wall "
+          f"{rec['shard']['wall']:.3f} s)")
+    if rec["backend"] != "nccl" or not equal or not same \
+            or rec["shard"]["status"] != 0:
+        raise AssertionError("[16e] NCCL at world size 1 differs from no "
+                             "group")
+
+
+def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
+                       tmp: str) -> dict:
+    """Phase 16: the multi-process runtime, every process on ``cuda:0``
+    (runs after phase 9, with its checkpoint). NCCL refuses two ranks on
+    one device, so the two-process legs run gloo (``TPUSEG_DIST_BACKEND``)
+    and NCCL is checked at world size 1. Returns every kernel's launches
+    summed over the worker processes."""
+    acc = {}
+    torch.cuda.empty_cache()
+    phase_mp_dp(tmp, acc)
+    phase_mp_train_cli(tmp)
+    shard_labels = phase_mp_infer(sv, ckpt_dir, vol_path, ann_path, tmp, acc)
+    phase_mp_nccl(ckpt_dir, vol_path, ann_path, tmp, shard_labels, acc)
+    missing = [k for k in KERNELS if not acc.get(k)]
+    if missing:
+        raise AssertionError(f"[16] the multi-process paths never launched "
+                             f"{missing}: {acc}")
+    return acc
+
+
+
 def check_block(name, got, want, dtype) -> float:
     """Max abs error of the K4 kernel against its twin; raises beyond the
     bounds.
@@ -2501,11 +3087,17 @@ def main(argv=None):
     parser.add_argument("--phases", default="",
                         help="comma-separated phases to run after 1-2 "
                              "(default: all, with the final record)")
-    only = {int(p) for p in parser.parse_args(argv).phases.split(",") if p}
+    parser.add_argument("--worker", nargs=2, metavar=("LEG", "DIR"),
+                        help="one process of phase 16 (started by it)")
+    args = parser.parse_args(argv)
+    if args.worker:
+        mp_worker(*args.worker)
+        return
+    only = {int(p) for p in args.phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if only & {13, 14, 15}:
-        only.add(9)                     # phases 13-15 infer with phase 9's checkpoint
+    if only & {13, 14, 15, 16}:
+        only.add(9)             # phases 13-16 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -2516,7 +3108,8 @@ def main(argv=None):
 
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
-    kernels, launches, tile_launches, streamed, sharded = {}, {}, {}, {}, {}
+    kernels, launches, tile_launches = {}, {}, {}
+    streamed, sharded, multiproc = {}, {}, {}
     if want(3):
         kernels.update(_timed("phase 3", phase_kernels, sv.image))
     if want(4):
@@ -2550,6 +3143,9 @@ def main(argv=None):
                 sharded = _timed("phase 15", phase_sharded, sv, stream_sv,
                                  *trained, tmp)
             del stream_sv
+            if want(16):
+                multiproc = _timed("phase 16", phase_multiprocess, sv,
+                                   *trained[:3], tmp)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):
@@ -2569,6 +3165,7 @@ def main(argv=None):
                "replaces": KERNELS[k][1], "launches": launches[k],
                "streamed_launches": streamed.get(k, 0),
                "sharded_launches": sharded.get(k, 0),
+               "multiprocess_launches": multiproc.get(k, 0),
                **({"tile_launches": tile_launches[k]}
                   if k in tile_launches else {}), **r}
               for k, r in kernels.items()]

@@ -376,6 +376,8 @@ from tpuseg_torch.cli import common, infer as cli_infer, train as cli_train
 from tpuseg_torch.core import Config, InferConfig
 from tpuseg_torch import losses, train
 from tpuseg_torch.models import fused_eval, fused_train
+from tpuseg_torch.parallel import multihost
+from tpuseg_torch.train import dp
 
 sv = data.synthesize_volume(shape=(12, 24, 40), num_instances=4,
                             radius_range=(3.0, 4.0), seed=1)

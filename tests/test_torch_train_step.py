@@ -207,11 +207,3 @@ def test_adamw_matches_optax(scale):
             np.testing.assert_allclose(p_port[k].numpy(), np.asarray(p_ref[k]),
                                        rtol=1e-6, atol=1e-7, err_msg=k)
     assert adam.count == 3
-
-
-def test_data_parallel_is_not_ported():
-    from tpuseg_torch.models import UNet3D
-
-    cfg = port_config(_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(UNet3D(cfg.model), cfg, axis_name="data")

@@ -1,5 +1,6 @@
 """Shared CLI plumbing: config loading + dotted overrides (the same flags and
-JSON format as ``tpuseg/cli/common.py``) and the checkpoint-in contract."""
+JSON format as ``tpuseg/cli/common.py``), the checkpoint-in contract and the
+runtime bootstrap."""
 
 from __future__ import annotations
 
@@ -48,3 +49,22 @@ def load_model_state(ckpt: str):
     if os.path.isdir(ckpt):
         ckpt = CheckpointManager(ckpt).model_path()
     return load_pth(ckpt)
+
+
+def bootstrap_runtime(device: str = "cuda") -> None:
+    """Process-level runtime set-up for every CLI entry point: the
+    multi-process group when the ``TPUSEG_COORDINATOR`` /
+    ``TPUSEG_NUM_PROCESSES`` / ``TPUSEG_PROCESS_ID`` (and optionally
+    ``TPUSEG_DIST_BACKEND``) environment is present
+    (``parallel/multihost.initialize``; a no-op without it), with one line
+    per process saying where it runs."""
+    from tpuseg_torch.parallel.multihost import (backend, initialize,
+                                                 is_distributed,
+                                                 process_count,
+                                                 process_device,
+                                                 process_index)
+
+    initialize(device=device)
+    if is_distributed():
+        print(f"process {process_index()}/{process_count()} on "
+              f"{process_device(device)}, backend {backend()}", flush=True)

@@ -4,9 +4,14 @@ out, in one shot, streamed in z-chunks (``--stream``), sharded over a z or
 (z, y) mesh (``--shard``), or streamed with each chunk sharded over y
 (``--stream-shard``). Shard i sits on visible card i mod the card count
 (all on one card with one), or on the CPU under ``--device cpu``; one
-process runs them all. Exit status 4 when ``--report-convergence`` finds
-the flood truncated, 3 when ``--validate`` finds an instance in more than
-one piece.
+process runs them all. Started as N processes with the ``TPUSEG_*``
+environment (``cli/common.bootstrap_runtime``), the mesh spans the
+processes, each holding its own shards on its own device
+(``parallel/multihost.py``); every process gets the labels, rank 0 alone
+writes ``--output`` and prints the validation, and every process exits
+with the same status; ``--resume-dir`` then keeps one directory per
+process. Exit status 4 when ``--report-convergence`` finds the flood
+truncated, 3 when ``--validate`` finds an instance in more than one piece.
 """
 
 from __future__ import annotations
@@ -122,7 +127,12 @@ def main(argv=None) -> int:
                                                               ["z", "y"]):
             raise SystemExit(
                 f'bad --shard spec {args.shard!r}: use "z8" or "z2,y4"')
+    from tpuseg_torch.cli.common import bootstrap_runtime
+
+    bootstrap_runtime(args.device)
     cfg = load_config(args)
+
+    import os
 
     import numpy as np
     import torch
@@ -133,10 +143,20 @@ def main(argv=None) -> int:
     from tpuseg_torch.models import build_model
     from tpuseg_torch.parallel import Mesh
     from tpuseg_torch.parallel.mesh import place_shards
+    from tpuseg_torch.parallel.multihost import (is_multiprocess,
+                                                 process_device,
+                                                 process_index)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    writer = process_index() == 0
+    resume_dir = args.resume_dir
+    if is_multiprocess():
+        device = process_device(device)
+        if resume_dir:
+            resume_dir = os.path.join(resume_dir,
+                                      f"process_{process_index()}")
 
     model = build_model(cfg.model)
     model.load_state_dict(load_model_state(args.checkpoint))
@@ -150,37 +170,40 @@ def main(argv=None) -> int:
     if args.calibrate_from:
         cfg = calibrated(cfg, args.calibrate_from, volume.size)
         pp = cfg.postproc
-        print(f"calibrated from {args.calibrate_from}: "
-              f"fg_target_fraction={pp.fg_target_fraction:.5f} "
-              f"nms_radius={pp.nms_radius} "
-              f"normalize_upper_pct={cfg.data.normalize_pcts[1]:.4f}")
+        if writer:
+            print(f"calibrated from {args.calibrate_from}: "
+                  f"fg_target_fraction={pp.fg_target_fraction:.5f} "
+                  f"nms_radius={pp.nms_radius} "
+                  f"normalize_upper_pct={cfg.data.normalize_pcts[1]:.4f}")
 
     t0 = time.perf_counter()
     diag = None
     if args.stream:
         out = None
-        if args.resume_dir:
-            # a persistent int32 memmap at the output path holds the finished
-            # chunks across a kill
-            path = _partial_path(args.output)
+        if resume_dir:
+            # a persistent int32 memmap at the output path (another rank's in
+            # its resume directory) holds the finished chunks across a kill
+            path = (_partial_path(args.output) if writer else
+                    os.path.join(resume_dir, "labels.partial.npy"))
+            os.makedirs(resume_dir, exist_ok=True)
             out = np.lib.format.open_memmap(
                 path, mode="r+" if _exists_with_shape(path, volume.shape)
                 else "w+", dtype=np.int32, shape=volume.shape)
         mesh = None
         if args.stream_shard:
-            mesh = Mesh(place_shards(args.stream_shard, device), ("y",))
+            mesh = Mesh(place_shards(args.stream_shard, args.device), ("y",))
             print(f"--stream-shard {args.stream_shard}: {mesh}")
         stats = {}
         labels = stream_infer(model, cfg, volume, out=out,
                               chunk_z=args.stream,
                               normalize=not args.no_normalize,
-                              resume_dir=args.resume_dir or None,
+                              resume_dir=resume_dir or None,
                               stats=stats, device=device, mesh=mesh)
         print("stream stats: " + json.dumps(stats))
         diag = {"flood_truncated": stats.get("flood_truncated_voxels", 0)}
     elif args.shard:
         shape = tuple(n for _, n in mesh_spec)
-        mesh = Mesh(place_shards(int(np.prod(shape)), device),
+        mesh = Mesh(place_shards(int(np.prod(shape)), args.device),
                     tuple(a for a, _ in mesh_spec), shape)
         print(f"--shard {args.shard}: {mesh}")
         infer = make_sharded_infer_fn(model, cfg, mesh,
@@ -209,24 +232,26 @@ def main(argv=None) -> int:
         from tpuseg_torch.ops.components import labels_are_connected
 
         # a streamed volume is checked chunk by chunk, as it was made
+        # every process holds the labels: each checks, so all exit alike
         ok = labels_are_connected(labels, device=device,
                                   chunk_z=args.stream or None)
-        print(f"connectivity validation: {'OK' if ok else 'FAILED'}")
+        if writer:
+            print(f"connectivity validation: {'OK' if ok else 'FAILED'}")
         if not ok:
             return 3
 
-    if args.stream and args.resume_dir and args.output.endswith(".npy"):
+    if args.stream and resume_dir and (args.output.endswith(".npy")
+                                       or not writer):
         labels.flush()                 # the output memmap is the result file
-    else:
+    elif writer:
         save_volume(args.output, labels)
-        if args.stream and args.resume_dir:
-            import os
-
+        if args.stream and resume_dir:
             os.remove(_partial_path(args.output))
-    n = int(labels.max())
-    mvox = volume.size / 1e6
-    print(f"{args.input}: {volume.shape} -> {n} instances on {device} "
-          f"in {dt:.2f}s ({mvox / dt:.2f} Mvox/s) -> {args.output}")
+    if writer:
+        n = int(labels.max())
+        mvox = volume.size / 1e6
+        print(f"{args.input}: {volume.shape} -> {n} instances on {device} "
+              f"in {dt:.2f}s ({mvox / dt:.2f} Mvox/s) -> {args.output}")
     return status
 
 

@@ -1,5 +1,8 @@
-"""``python -m tpuseg_torch.cli.train`` — weakly-supervised training on one
-device (port of ``tpuseg/cli/train.py``).
+"""``python -m tpuseg_torch.cli.train`` — weakly-supervised training (port of
+``tpuseg/cli/train.py``): on one device, or data-parallel over N processes
+started with the ``TPUSEG_*`` environment (``cli/common.bootstrap_runtime``;
+one process per card, or gloo processes on the CPU), rank 0 writing the
+checkpoints, the config and the log.
 
 Volumes come either from --image/--annotations file pairs (npy/npz; see
 ``data/volume_io.py``) or --synthetic for the built-in fixture. Checkpoints
@@ -34,6 +37,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     args = p.parse_args(argv)
+    from tpuseg_torch.cli.common import bootstrap_runtime
+
+    bootstrap_runtime(args.device)
     cfg = load_config(args)
     if args.val_fraction is not None:
         cfg = cfg.override(**{"train.val_fraction": args.val_fraction})
@@ -42,6 +48,7 @@ def main(argv=None):
 
     from tpuseg_torch.data import (SyntheticVolume, load_annotations,
                                    load_volume, synthesize_volume)
+    from tpuseg_torch.parallel.multihost import process_index
     from tpuseg_torch.train import train
 
     if args.synthetic:
@@ -60,13 +67,14 @@ def main(argv=None):
                 SyntheticVolume(image=img, labels=np.zeros_like(img, np.int32),
                                 centers=centers, half_sizes=halfs))
 
-    os.makedirs(cfg.train.ckpt_dir, exist_ok=True)
-    with open(os.path.join(cfg.train.ckpt_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if process_index() == 0:
+        os.makedirs(cfg.train.ckpt_dir, exist_ok=True)
+        with open(os.path.join(cfg.train.ckpt_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     _, history = train(cfg, volumes, log_path=args.log, resume=args.resume,
                        device=args.device)
-    if history:
+    if history and process_index() == 0:
         h = [h for h in history if "loss" in h][-1]
         print(f"done: step {h['step']} loss {h['loss']:.4f} "
               f"({h['mvox_per_s']:.2f} Mvox/s)")

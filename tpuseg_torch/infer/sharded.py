@@ -1,13 +1,15 @@
-"""Sharded whole-volume inference in one process (port of
-``tpuseg/infer/sharded.py``, without its multislice mesh helpers).
+"""Sharded whole-volume inference (port of ``tpuseg/infer/sharded.py``,
+without its multislice mesh helpers), in one process or in several.
 
 The volume is split over a 1-D ``("z",)`` or 2-D ``("z", "y")`` mesh
 (``parallel/mesh.py``); shard ``(iz, iy)`` owns the slab
 ``[iz * Dl, (iz + 1) * Dl) x [iy * Hl, (iy + 1) * Hl)``. The JAX package
 runs one ``shard_map`` body on every device at once, with collectives in
-the middle of it. One process runs the shards one after another, so the
+the middle of it. A process runs its own shards (all of them without a
+process group, ``mesh.local_ranks()`` under one) one after another, so the
 body is split at each collective into stages; a stage that needs every
-shard's output runs for all of them before the next:
+shard's output runs for all of a process's shards before the next, and its
+collective (``parallel/collectives.py``) then spans the processes:
 
 1. halo exchange (``infer.shard_halo`` planes, y first, then z) and the
    normalization scalars from the summed histograms of the cores;
@@ -58,9 +60,11 @@ from tpuseg_torch.infer.tiles import tiled_forward
 from tpuseg_torch.ops.calibrate import fg_bin_counts, threshold_from_counts
 from tpuseg_torch.ops.merge import saddle_merge_core_edges
 from tpuseg_torch.ops.watershed import watershed
-from tpuseg_torch.parallel.collectives import pmax, pmin, ppermute, psum
+from tpuseg_torch.parallel.collectives import (all_gather, pmax, pmin,
+                                               ppermute, psum)
 from tpuseg_torch.parallel.halo import exchange_mesh_halo
 from tpuseg_torch.parallel.mesh import Mesh, replicas
+from tpuseg_torch.parallel.multihost import is_distributed, put_global
 from tpuseg_torch.parallel.reconcile import (SHARD_OVERFLOW, boundary_edges,
                                              build_local_table, global_lin,
                                              packed_compact_labels,
@@ -73,9 +77,9 @@ def global_histogram_percentile(slabs, pcts, bins: int = 4096,
     """Percentiles of the whole volume from its shards' slabs: the global
     min and max, then the summed int64 histograms of every
     ``sample_stride``-th x voxel (x is never sharded, so the shards sample
-    the one-shot path's voxels). Returns ``(p_lo, p_hi)``, 0-d float32 on
-    the first shard's device, equal to the one-shot
-    ``histogram_percentile_scalars``."""
+    the one-shot path's voxels). ``slabs``: this process's shards. Returns
+    ``(p_lo, p_hi)``, 0-d float32 on the first shard's device, equal to
+    the one-shot ``histogram_percentile_scalars``."""
     slabs = [s.float() for s in slabs]
     lo = pmin([s.min() for s in slabs])
     span = torch.clamp(pmax([s.max() for s in slabs]) - lo, min=1e-12)
@@ -85,6 +89,7 @@ def global_histogram_percentile(slabs, pcts, bins: int = 4096,
         hists.append(bin_counts(sample.reshape(1, -1), lo[None].to(s.device),
                                 span[None].to(s.device), bins))
         n += sample.numel()
+    n = int(psum([torch.tensor(n)]))
     vals = percentiles_from_counts(psum(hists), n, lo[None], span[None],
                                    pcts, bins)
     return tuple(torch.tensor(v[0], device=lo.device) for v in vals)
@@ -128,11 +133,14 @@ def _merge_edges(parts, keys, edges, cap: int, n_shards: int, pp,
 
 def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                           normalize: bool = True, plain: bool = False):
-    """``infer(shards, z_offset=0) -> labels``: ``shards`` are the mesh's
-    per-shard slabs in rank order (``shard_volume``), each on its device;
-    the result is each shard's int32 core labels on its device
-    (``unshard`` puts them together). ``z_offset`` is the global z of the
-    stack's first plane, for a block inside a larger volume.
+    """``infer(shards, z_offset=0) -> labels``: ``shards`` are this
+    process's per-shard slabs in the order of ``mesh.local_ranks()`` (every
+    shard in rank order without a process group; ``shard_volume``), each on
+    its device; the result is each of those shards' int32 core labels on
+    its device (``unshard`` puts every process's together). ``z_offset`` is
+    the global z of the stack's first plane, for a block inside a larger
+    volume. Under a process group every process calls ``infer`` on its
+    shards.
 
     ``model`` maps (B, 1, d, h, w) blocks to ``{"fg_logits",
     "peak_logits"}``; it is copied to each shard device it is not on. The
@@ -150,12 +158,16 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
     halo = cfg.infer.shard_halo
     compute_dtype = resolve(cfg.infer.compute_dtype)
     pp = cfg.postproc
-    apply_fns = {d: make_apply_fn(m, cfg, plain)
-                 for d, m in replicas(model, mesh.devices).items()}
+    local = mesh.local_ranks()
+    apply_fns = {d: make_apply_fn(m, cfg, plain) for d, m in replicas(
+        model, [mesh.devices[r] for r in local]).items()}
     coords = [mesh.coords(r) for r in range(mesh.size)]
 
     @torch.inference_mode()
     def infer(shards, z_offset: int = 0):
+        if len(shards) != len(local):
+            raise ValueError(f"{len(shards)} shards for this process's "
+                             f"{len(local)} of the mesh")
         shape = tuple(shards[0].shape)
         if any(tuple(s.shape) != shape for s in shards):
             raise ValueError("shards differ in shape: "
@@ -169,13 +181,13 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
 
         # 1: halo exchange (y, then z) + global normalization scalars
         slabs = [s.float() for s in shards]
-        ext = exchange_mesh_halo(slabs, halo, mesh)
-        preprocess = [None] * mesh.size
+        ext = dict(zip(local, exchange_mesh_halo(slabs, halo, mesh)))
+        preprocess = dict.fromkeys(local)
         if normalize:
             p_lo, p_hi = global_histogram_percentile(
                 slabs, cfg.data.normalize_pcts,
                 sample_stride=cfg.data.normalize_sample_stride)
-            for r, s in enumerate(slabs):
+            for r, s in zip(local, slabs):
                 lo = p_lo.to(s.device)
                 span = torch.clamp(p_hi.to(s.device) - lo, min=1e-6)
                 preprocess[r] = (lambda b, lo=lo, span=span:
@@ -237,28 +249,28 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         # before any watershed (4: the volume-matched threshold over the
         # cores' summed histograms)
         if pp.fg_target_fraction > 0:
-            probs = [sweep(r) for r in range(mesh.size)]
+            probs = {r: sweep(r) for r in local}
             stride = cfg.data.normalize_sample_stride
             hists, n = [], 0
-            for f, _ in probs:
+            for f, _ in probs.values():
                 core = _core(f, halo, sizes)
                 if stride > 1:
                     core = core[..., ::stride]
                 hists.append(fg_bin_counts(core))
                 n += core.numel()
+            n = int(psum([torch.tensor(n)]))
             thr = float(threshold_from_counts(psum(hists), n,
                                               pp.fg_target_fraction))
-            parts = []
-            for r in range(mesh.size):
-                f, p = probs[r]
-                probs[r] = None
-                parts.append(label(r, f, p, thr))
+            parts = {}
+            for r in local:
+                f, p = probs.pop(r)
+                parts[r] = label(r, f, p, thr)
         else:
-            parts = [label(r, *sweep(r), pp.fg_threshold)
-                     for r in range(mesh.size)]
-        report_overflow([t["n_distinct"] for t in parts], cap, SHARD_OVERFLOW)
-        keys = [t["key"] for t in parts]
-        core_p = [_core(t["packed"], 0, sizes) for t in parts]
+            parts = {r: label(r, *sweep(r), pp.fg_threshold) for r in local}
+        report_overflow([t["n_distinct"] for t in parts.values()], cap,
+                        SHARD_OVERFLOW)
+        keys = [t["key"] for t in parts.values()]
+        core_p = {r: _core(t["packed"], 0, sizes) for r, t in parts.items()}
 
         # the overlap-plane edges of every cut dim feed one closure
         # (corner-crossing instances merge transitively)
@@ -269,46 +281,47 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
             for line in mesh.lines(a):
                 theirs = ppermute(
                     [_core(parts[r]["packed"].select(d, sizes[d]), 0,
-                           sizes[:d] + sizes[d + 1:]) for r in line],
-                    [(j, j + 1) for j in range(len(line) - 1)])
+                           sizes[:d] + sizes[d + 1:]) if r in parts else None
+                     for r in line],
+                    [(j, j + 1) for j in range(len(line) - 1)],
+                    [mesh.processes[r] for r in line])
                 for j, r in enumerate(line[1:], start=1):
-                    edges.append(boundary_edges(core_p[r].select(d, 0),
-                                                theirs[j]))
+                    if r in parts:
+                        edges.append(boundary_edges(core_p[r].select(d, 0),
+                                                    theirs[j]))
         if merging:                              # 7
-            edges += _merge_edges(parts, keys, edges, cap, mesh.size, pp,
-                                  sizes + shape[len(axes):])
+            edges += _merge_edges(list(parts.values()), keys, edges, cap,
+                                  mesh.size, pp, sizes + shape[len(axes):])
         # 8: global union, size filter, dense numbering
-        return packed_compact_labels(core_p, keys,
-                                     [t["count"] for t in parts], edges, cap,
-                                     mesh.size, min_size=pp.min_size)
+        return packed_compact_labels(list(core_p.values()), keys,
+                                     [t["count"] for t in parts.values()],
+                                     edges, cap, mesh.size,
+                                     min_size=pp.min_size)
 
     return infer
 
 
 def shard_volume(volume, mesh: Mesh) -> list:
-    """The mesh's per-shard slabs of a (D, H, W) volume, each uploaded to
-    its shard's device in the volume's dtype. Each slab is read on its own,
-    so an ``np.memmap`` is never read whole."""
+    """This process's per-shard slabs of a (D, H, W) volume (every shard's
+    without a process group), each uploaded to its shard's device in the
+    volume's dtype (``multihost.put_global``). Each slab is read on its
+    own, so an ``np.memmap`` is never read whole."""
     D, H = volume.shape[:2]
     nz = mesh.shape[mesh.axis_names[0]]
     ny = mesh.shape[mesh.axis_names[1]] if len(mesh.axis_names) == 2 else 1
     if D % nz or H % ny:
         raise ValueError(f"volume {tuple(volume.shape)} does not split over "
                          f"the mesh {dict(mesh.shape)}")
-    dl, hl = D // nz, H // ny
-    out = []
-    for r, dev in enumerate(mesh.devices):
-        iz, iy = (mesh.coords(r) + (0,))[:2]
-        slab = volume[iz * dl:(iz + 1) * dl, iy * hl:(iy + 1) * hl]
-        if not isinstance(slab, torch.Tensor):
-            slab = torch.from_numpy(np.array(slab))
-        out.append(slab.to(dev))
-    return out
+    return put_global(volume, mesh)
 
 
 def unshard(labels, mesh: Mesh) -> np.ndarray:
     """The shards' core labels as one numpy (D, H, W) array (the
-    counterpart of ``np.asarray`` of a sharded ``jax.Array``)."""
+    counterpart of ``np.asarray`` of a sharded ``jax.Array``). Under a
+    process group ``labels`` are this process's shards' and every process
+    gets the whole volume (one ``all_gather``)."""
+    if is_distributed():
+        labels = list(all_gather([torch.stack(labels)]).unbind(0))
     dl, hl, W = labels[0].shape
     nz = mesh.shape[mesh.axis_names[0]]
     ny = mesh.shape[mesh.axis_names[1]] if len(mesh.axis_names) == 2 else 1

@@ -25,7 +25,11 @@ finalize: a host union-find over the overlap-plane and merge edges, global
          chunk in place.
 
 Host memory: one int32 (D, H, W) result plus chunk-sized buffers. Device
-memory follows the chunk, not the volume. The labels equal the one-shot
+memory follows the chunk, not the volume. Under a process group the mesh's
+y-shards are spread over the processes: each reads the chunk's rows of its
+own shards and uploads only those, the chunk's outputs are gathered to every
+process, and the host passes and the finalize run identically in each (with
+``resume_dir``, one directory per process). The labels equal the one-shot
 ``make_infer_fn``'s elementwise wherever instances fit within the halo.
 
 PyTorch runs eagerly: there is no compiled chunk program and no staged
@@ -56,9 +60,11 @@ from tpuseg_torch.ops.calibrate import fg_bin_counts
 from tpuseg_torch.ops.components import rename, union_closure
 from tpuseg_torch.ops.merge import saddle_merge_core_edges, saddle_merge_edges
 from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
-from tpuseg_torch.parallel.collectives import ppermute, psum
+from tpuseg_torch.parallel.collectives import (all_gather, pmax, pmin,
+                                               ppermute, psum)
 from tpuseg_torch.parallel.halo import exchange_halo
 from tpuseg_torch.parallel.mesh import replicas
+from tpuseg_torch.parallel.multihost import is_distributed, is_multiprocess
 from tpuseg_torch.parallel.reconcile import (CHUNK_OVERFLOW, boundary_edges,
                                              build_local_table, coord_labels,
                                              global_lin, packed_groups,
@@ -71,14 +77,16 @@ def _chunk_histogram(vol_chunk: np.ndarray, lo: float, span: float, bins: int):
     return np.bincount(idx.ravel(), minlength=bins)
 
 
-def _read_ext(volume, z0, z1, halo, ext_z, D):
+def _read_ext(volume, z0, z1, halo, ext_z, D, rows=None):
     """Extended chunk ``[z0 - halo, z1 + halo)`` in the source dtype, clipped
     and edge-replicated at the volume's ends and padded up to ``ext_z``
-    planes (the top padding fixes the origin local ids count from). Returns
-    ``(ext, mask_top, mask_bot)``: the fake planes at each end."""
+    planes (the top padding fixes the origin local ids count from); only
+    the y range ``rows`` of it where given. Returns ``(ext, mask_top,
+    mask_bot)``: the fake planes at each end."""
     lo_z, hi_z = z0 - halo, z1 + halo
     r0, r1 = max(lo_z, 0), min(hi_z, D)
-    ext = np.asarray(volume[r0:r1])
+    ext = np.asarray(volume[r0:r1] if rows is None
+                     else volume[r0:r1, rows[0]:rows[1]])
     pad_top, pad_bot = r0 - lo_z, hi_z - r1
     pad_static = ext_z - (pad_top + ext.shape[0] + pad_bot)
     if pad_top or pad_bot or pad_static:
@@ -193,7 +201,11 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
     shard whose table holds the root (``saddle_merge_core_edges``); the
     edges are the single-device chunk's wherever its labels are. (The JAX
     package merges each y-slab on its device before the reconciliation;
-    the two agree for instances and merge chains within the halos.)"""
+    the two agree for instances and merge chains within the halos.)
+
+    Under a process group each process holds the y-slabs of its own shards
+    (``ext`` holds only their rows) and the chunk's outputs — labels, merge
+    edges, truncation count — are gathered to every process."""
     if len(mesh.axis_names) != 1:
         raise ValueError("stream_infer(mesh=...) shards each chunk over y: "
                          f"the mesh needs one axis, got {mesh.axis_names}")
@@ -201,19 +213,24 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
     halo_y = cfg.infer.shard_halo
     cap = cfg.infer.shard_max_labels
     pp = cfg.postproc
-    apply_fns = {d: make_apply_fn(m, cfg)
-                 for d, m in replicas(model, mesh.devices).items()}
+    local = mesh.local_ranks()
+    apply_fns = {d: make_apply_fn(m, cfg) for d, m in replicas(
+        model, [mesh.devices[i] for i in local]).items()}
+    gathered = is_distributed()
 
     def chunk_net_fn(ext, lo, hi, mask_top, mask_bot):
-        """Per y-shard (fg, peak) lists on the y-extended slabs, the fake z
-        planes and the fake (edge-replicated) y halos zeroed: those voxels
-        are not in the single-device chunk's watershed domain."""
-        hl = ext.shape[1] // n_y
-        slabs = exchange_halo([ext[:, i * hl:(i + 1) * hl].to(d).float()
-                               for i, d in enumerate(mesh.devices)],
-                              halo_y, dim=1)
-        fg, pk = [], []
-        for i, slab in enumerate(slabs):
+        """Per y-shard (fg, peak) lists on the y-extended slabs (``None`` for
+        another process's shard), the fake z planes and the fake
+        (edge-replicated) y halos zeroed: those voxels are not in the
+        single-device chunk's watershed domain."""
+        hl = ext.shape[1] // len(local)
+        slabs = [None] * n_y
+        for j, i in enumerate(local):
+            slabs[i] = ext[:, j * hl:(j + 1) * hl].to(mesh.devices[i]).float()
+        slabs = exchange_halo(slabs, halo_y, dim=1, owners=mesh.processes)
+        fg, pk = [None] * n_y, [None] * n_y
+        for i in local:
+            slab = slabs[i]
             d = slab.device
             f, p = _chunk_probs(apply_fns[d], slab, lo.to(d), hi.to(d),
                                 mask_top, mask_bot, cfg)
@@ -223,26 +240,26 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                     t[:, :halo_y] = 0.0
                 if i == n_y - 1:
                     t[:, halo_y + hl:] = 0.0
-            fg.append(f)
-            pk.append(p)
+            fg[i], pk[i] = f, p
         return fg, pk
 
     def fg_hist_fn(ext, lo, hi, mask_top, mask_bot):
         fg, _ = chunk_net_fn(ext, lo, hi, mask_top, mask_bot)
-        hl = ext.shape[1] // n_y
-        return psum([_fg_core_counts(f[halo:halo + chunk_z,
-                                       halo_y:halo_y + hl], cfg, calib_bins)
-                     for f in fg])
+        hl = ext.shape[1] // len(local)
+        return psum([_fg_core_counts(fg[i][halo:halo + chunk_z,
+                                           halo_y:halo_y + hl], cfg,
+                                     calib_bins) for i in local])
 
     def chunk_post_fn(fg, pk, fg_thr, cz):
-        hly, W = fg[0].shape[1:]
+        hly, W = fg[local[0]].shape[1:]
         hl = hly - 2 * halo_y
         H = hl * n_y
-        dev = mesh.devices[0]
+        dev = mesh.devices[local[0]]
         merging = pp.merge_saddle_ratio > 0
-        grown_p, grown_pk, tables, peaks, n_distinct = [], [], [], [], []
+        grown_p = [None] * n_y
+        grown_pk, tables, peaks, n_distinct = [], [], [], []
         n_trunc = 0
-        for i in range(n_y):
+        for i in local:
             lab = watershed(fg[i], pk[i], peak_threshold=pp.peak_threshold,
                             fg_threshold=fg_thr, peak_radius=pp.nms_radius,
                             flood_iters=pp.flood_iters, method=pp.method,
@@ -257,26 +274,28 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                 grown[:, :hl], [grown[:, hl]] if n_y > 1 else [], cap)
             tables.append(table)
             n_distinct.append(nd)
-            grown_p.append(rename_to_packed(grown, table, i, cap))
+            grown_p[i] = rename_to_packed(grown, table, i, cap)
             if merging:
                 peaks.append(pk[i].reshape(-1)[table.long() - 1])
                 grown_pk.append(pk[i][:, halo_y:halo_y + grown.shape[1]])
             pk[i] = None
         report_overflow(n_distinct, cap, CHUNK_OVERFLOW)
         keys = [global_lin(t, hly, (0, i * hl - halo_y), H, W)
-                for i, t in enumerate(tables)]
+                for i, t in zip(local, tables)]
         edges = []
         if n_y > 1:
-            theirs = ppermute([p[:, hl] for p in grown_p],
-                              [(j, j + 1) for j in range(n_y - 1)])
+            theirs = ppermute([None if p is None else p[:, hl]
+                               for p in grown_p],
+                              [(j, j + 1) for j in range(n_y - 1)],
+                              mesh.processes)
             edges = [boundary_edges(grown_p[j][:, 0], theirs[j])
-                     for j in range(1, n_y)]
+                     for j in range(1, n_y) if grown_p[j] is not None]
         # every group renamed to its smallest root coordinate in the chunk
         group, gmin, gval = packed_groups(keys, edges, cap, n_y,
                                           peaks if merging else None)
         coord = torch.from_numpy(coord_labels(gmin)).to(dev)
         group = torch.from_numpy(group).to(dev)
-        parts = [group[p.to(dev).long()] for p in grown_p]
+        parts = [group[grown_p[i].to(dev).long()] for i in local]
         labels = torch.cat([coord[p[:, :hl].long()] for p in parts], dim=1)
         me_lo = me_hi = torch.zeros(0, dtype=torch.int32, device=dev)
         if merging:
@@ -289,6 +308,11 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                 for p, q in zip(parts, grown_pk)]
             me_lo = coord[torch.cat([lo for lo, _ in e]).long()]
             me_hi = coord[torch.cat([hi for _, hi in e]).long()]
+        if gathered:
+            # every process gets the whole chunk: its rows, by shard
+            labels = all_gather([labels.movedim(1, 0)]).movedim(0, 1)
+            me_lo, me_hi = all_gather([me_lo]), all_gather([me_hi])
+            n_trunc = int(psum([torch.tensor(n_trunc)]))
         return _crop_chunk(labels, halo, chunk_z, cz) + (me_lo, me_hi,
                                                          n_trunc)
 
@@ -300,9 +324,11 @@ class _Uploader:
     the next chunk is staged through one pinned host buffer and copied on a
     side stream, so its upload runs under the current chunk's kernels."""
 
-    def __init__(self, volume, chunks, halo, ext_z, device, overlap):
+    def __init__(self, volume, chunks, halo, ext_z, device, overlap,
+                 rows=None):
         self.volume, self.chunks, self.halo, self.ext_z = (
             volume, chunks, halo, ext_z)
+        self.rows = rows                 # a y range of the chunk, or all
         self.D = volume.shape[0]
         self.device = device
         self.overlap = overlap and device.type == "cuda"
@@ -314,7 +340,7 @@ class _Uploader:
     def __call__(self, ci):
         z0, z1 = self.chunks[ci]
         ext, mt, mb = _read_ext(self.volume, z0, z1, self.halo, self.ext_z,
-                                self.D)
+                                self.D, self.rows)
         if not self.overlap:
             if not ext.flags.writeable:  # a view of a read-only memmap
                 ext = ext.copy()
@@ -432,17 +458,25 @@ def stream_infer(
     over y across its shards (``infer.shard_halo`` rows of context each
     side, ``H`` a multiple of the shard count) and the result equals the
     single-device stream's for instances within the halos. The chunk
-    goes to the mesh's first device and its y-slabs to theirs; ``device``
-    is not used.
+    goes to the first local shard's device and its y-slabs to theirs;
+    ``device`` is not used. Under a process group every process calls
+    ``stream_infer`` with the same arguments (``resume_dir`` and ``out``
+    its own) and reads, uploads and computes only its own shards' rows;
+    several processes need a mesh.
 
     ``overlap=False`` runs the chunks' copies in sequence with their compute
     (the version ``chip_smoke.py`` times the overlapped one against); on a
     CPU device they always are.
     """
+    if mesh is None and is_multiprocess():
+        raise ValueError("a multi-process stream needs a mesh: pass "
+                         "stream_infer(mesh=...) over the processes' shards")
     if mesh is not None:
-        device = mesh.devices[0]
+        local = mesh.local_ranks()
+        device = mesh.devices[local[0]]
     device = torch.device(device)
-    cards = ({d for d in mesh.devices if d.type == "cuda"} if mesh is not None
+    cards = ({mesh.devices[i] for i in local if mesh.devices[i].type == "cuda"}
+             if mesh is not None
              else {device} if device.type == "cuda" else set())
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
@@ -481,6 +515,12 @@ def stream_infer(
             else:
                 for fn in os.listdir(resume_dir):
                     os.remove(os.path.join(resume_dir, fn))
+        if is_distributed() and int(pmin([torch.tensor(
+                int(resume_meta is not None))])) == 0:
+            # the processes resume together or start over together
+            resume_meta = None
+            for fn in os.listdir(resume_dir):
+                os.remove(os.path.join(resume_dir, fn))
 
     # ---- pass 1: global percentile scalars ----
     if resume_meta is not None:
@@ -501,7 +541,11 @@ def stream_infer(
                              f"{mesh.size} y-shards")
         fg_hist_fn, chunk_net_fn, chunk_post_fn = _make_sharded_chunk_fns(
             model, cfg, halo, chunk_z, mesh, bins)
-    upload = _Uploader(volume, chunks, halo, ext_z, device, overlap)
+    rows = None
+    if mesh is not None and len(local) < mesh.size:
+        hl = H // mesh.size
+        rows = (local[0] * hl, (local[-1] + 1) * hl)
+    upload = _Uploader(volume, chunks, halo, ext_z, device, overlap, rows)
     mark("t_calibrate_pass")
 
     # ---- pass 1b: volume-matched fg threshold (an extra net pass) ----
@@ -559,17 +603,27 @@ def stream_infer(
         return os.path.join(resume_dir, f"chunk_{ci:06d}.npz")
 
     if resume_meta is not None:
+        fin = {}
         if os.path.exists(fin_path):
             with open(fin_path) as f:
                 fin = json.load(f)
-            if fin.get("complete"):
-                # the previous run finished: ``result`` holds the final labels
-                if stats is not None:
-                    stats["resumed_complete"] = True
-                return result
-            fin_done_upto = int(fin.get("done_upto", 0))
+        if is_distributed():
+            done = torch.tensor(int(bool(fin.get("complete"))))
+            if int(pmin([done])) != int(pmax([done])):
+                raise ValueError(f"{resume_dir}: the processes' resume "
+                                 "directories disagree on a finished stream")
+        if fin.get("complete"):
+            # the previous run finished: ``result`` holds the final labels
+            if stats is not None:
+                stats["resumed_complete"] = True
+            return result
+        fin_done_upto = int(fin.get("done_upto", 0))
         while os.path.exists(chunk_path(start_ci)):
             start_ci += 1
+        if is_distributed():
+            # the chunks every process finished: the collectives stay in step
+            start_ci = int(pmin([torch.tensor(start_ci)]))
+            fin_done_upto = min(fin_done_upto, start_ci)
         for ci in range(start_ci):
             a = np.load(chunk_path(ci))
             id_chunks.append(a["ids"])

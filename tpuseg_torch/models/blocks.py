@@ -11,7 +11,9 @@ every op rounds where the JAX package's does:
   statistics reduced from the compute-dtype tensor, applies the folded
   affine in float32 arithmetic and rounds once to the compute dtype, so the
   backward's per-channel reductions accumulate in float32
-  (``TrainBatchNorm``, ``blocks.py:111-131``);
+  (``TrainBatchNorm``, ``blocks.py:111-131``); on a process group of data
+  parallelism the statistics are the means over the ranks
+  (``lax.pmean``), differentiably (:class:`GroupMean`);
 * ``Up`` is nearest x2, a (0, 1) pad on each axis (XLA's SAME for an even
   kernel), then the k=2 conv (``ckpt/torch_mirror.py:68-71``).
 
@@ -22,10 +24,12 @@ the ``.pth`` files that ``tpuseg.cli.export`` writes load as they are.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from tpuseg_torch.ops.convblock import fold_bn_affine
+from tpuseg_torch.parallel.collectives import group_mean
 
 
 class Conv3d(nn.Conv3d):
@@ -52,19 +56,42 @@ def eval_batch_norm(x, weight, bias, running_mean, running_var,
     return x * _channel(s.to(x.dtype)) + _channel(b.to(x.dtype))
 
 
+class GroupMean(torch.autograd.Function):
+    """``lax.pmean`` over a process group as a differentiable function: the
+    forward is the mean of ``x`` over the ranks, and so is the backward of
+    the cotangents (each rank's input feeds every rank's output by 1/N).
+    A bare ``all_reduce`` has no backward, so each rank's input gradients
+    would miss the other ranks' terms."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group_mean(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_mean(g, ctx.group), None
+
+
 def train_batch_norm(x, weight, bias, running_mean, running_var,
-                     momentum: float = 0.9, eps: float = 1e-5):
+                     momentum: float = 0.9, eps: float = 1e-5, group=None):
     """``TrainBatchNorm``: normalize (N, C, D, H, W) ``x`` by its float32
     batch statistics — the mean and the biased variance
     ``max(E[x^2] - mean^2, 0)`` over (N, D, H, W) — and update the running
     statistics in place by the EMA ``momentum * old + (1 - momentum) *
     batch`` (flax's convention; ``nn.BatchNorm3d`` keeps an unbiased
     variance under the opposite momentum). The folded affine is applied in
-    float32 and rounded once to x's dtype."""
+    float32 and rounded once to x's dtype.
+
+    ``group``: a process group of data parallelism; with more than one rank
+    the statistics ``(mean, E[x^2])`` are their means over the ranks
+    (:class:`GroupMean`), those of the global batch."""
     dims = (0, 2, 3, 4)
     xf = x.float()
     mean = xf.mean(dims)
     mean2 = torch.square(xf).mean(dims)
+    if group is not None and dist.get_world_size(group) > 1:
+        mean, mean2 = GroupMean.apply(torch.stack([mean, mean2]), group)
     var = torch.clamp(mean2 - torch.square(mean), min=0.0)
     with torch.no_grad():
         running_mean.copy_(momentum * running_mean
@@ -78,13 +105,15 @@ def train_batch_norm(x, weight, bias, running_mean, running_var,
 class BatchNorm(nn.Module):
     """BatchNorm with ``nn.BatchNorm3d``'s state names: train mode runs
     :func:`train_batch_norm`, eval mode :func:`eval_batch_norm`, on the same
-    parameters and running statistics."""
+    parameters and running statistics. ``group``: the process group whose
+    ranks share the train-mode statistics (``train/dp.py`` sets it)."""
 
     momentum = 0.9          # the JAX package's ConvBlock sets these two
     eps = 1e-5
 
     def __init__(self, features: int):
         super().__init__()
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -94,7 +123,7 @@ class BatchNorm(nn.Module):
         if self.training:
             return train_batch_norm(x, self.weight, self.bias,
                                     self.running_mean, self.running_var,
-                                    self.momentum, self.eps)
+                                    self.momentum, self.eps, self.group)
         return eval_batch_norm(x, self.weight, self.bias, self.running_mean,
                                self.running_var, self.eps)
 

@@ -1,6 +1,6 @@
-"""Shard meshes, halo exchange and cross-shard label reconciliation for the
-single-process sharded paths (port of ``tpuseg/parallel``; its
-multi-process runtime is not ported yet)."""
+"""Shard meshes, halo exchange, cross-shard label reconciliation and the
+multi-process runtime of the sharded and data-parallel paths (port of
+``tpuseg/parallel``)."""
 
 from tpuseg_torch.parallel.halo import exchange_halo, exchange_z_halo
 from tpuseg_torch.parallel.mesh import Mesh, make_z_mesh, make_zy_mesh

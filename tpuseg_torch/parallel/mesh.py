@@ -5,9 +5,14 @@ A :class:`Mesh` names one or two spatial axes, ``("z",)`` or ``("z", "y")``,
 mapped to the volume's dims 0 and 1, and holds one ``torch.device`` per
 shard in row-major order (shard rank ``iz * n_y + iy``). A device may
 repeat: on one card every shard sits on ``cuda:0``, as the JAX package's
-tests put eight virtual devices on one CPU. This single-process port runs
-the shards one after another; the collectives of ``parallel/collectives.py``
-move tensors between their devices.
+tests put eight virtual devices on one CPU. A process runs its shards one
+after another; the collectives of ``parallel/collectives.py`` move tensors
+between their devices.
+
+Under a multi-process runtime (``parallel/multihost.py``) the shards are
+laid out contiguously by process, as JAX orders a global mesh's devices:
+shard i of n belongs to process ``i // (n / N)``, and each process holds
+only its ``local_ranks()``. With one process every shard is local.
 
 The JAX package's multislice helpers are not ported: they lay a mesh over
 TPU slices joined by DCN.
@@ -22,11 +27,16 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from tpuseg_torch.parallel.multihost import (device_of_process,
+                                             is_distributed, process_count,
+                                             process_index)
+
 
 class Mesh:
     """``axis_names``, ``shape`` (an ordered ``{axis: size}``, indexed by
-    axis name as in JAX) and ``devices`` (one ``torch.device`` per shard,
-    row-major)."""
+    axis name as in JAX), ``devices`` (one ``torch.device`` per shard,
+    row-major) and ``processes`` (the process that owns each shard, in the
+    runtime's contiguous layout)."""
 
     def __init__(self, devices: Sequence, axis_names: Tuple[str, ...],
                  shape: Tuple[int, ...] | None = None):
@@ -41,10 +51,16 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = OrderedDict(zip(self.axis_names, shape))
         self.devices = devices
+        self.processes = tuple(shard_processes(len(devices)))
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def local_ranks(self) -> list:
+        """The shards this process holds, ascending."""
+        me = process_index()
+        return [r for r, p in enumerate(self.processes) if p == me]
 
     def coords(self, rank: int) -> Tuple[int, ...]:
         """Per-axis index of shard ``rank``."""
@@ -74,11 +90,25 @@ def as_device(d) -> torch.device:
     return d
 
 
+def shard_processes(n: int) -> list:
+    """The owner of each of ``n`` shards: ``i // (n / N)`` over the
+    runtime's N processes (all 0 without a process group)."""
+    if not is_distributed():
+        return [0] * n
+    count = process_count()
+    if n % count:
+        raise ValueError(f"{n} shards do not split over {count} processes")
+    return [i // (n // count) for i in range(n)]
+
+
 def place_shards(n: int, device="cuda") -> list:
     """Devices for ``n`` shards: shard ``i`` on visible card ``i`` mod the
     card count for a CUDA device (all on ``cuda:0`` with one card), all on
-    ``device`` otherwise."""
+    ``device`` otherwise. Under a process group a shard sits on its
+    process's device (``multihost.device_of_process``)."""
     device = torch.device(device)
+    if is_distributed():
+        return [device_of_process(p, device) for p in shard_processes(n)]
     if device.type != "cuda":
         return [device] * n
     count = torch.cuda.device_count()
@@ -88,9 +118,11 @@ def place_shards(n: int, device="cuda") -> list:
 
 
 def make_z_mesh(axis: str = "z", devices=None) -> Mesh:
-    """1-D mesh of z slabs, one per device (default: every visible card)."""
-    devices = place_shards(torch.cuda.device_count()) if devices is None \
-        else devices
+    """1-D mesh of z slabs, one per device (default: every visible card, or
+    one per process under a process group)."""
+    if devices is None:
+        devices = place_shards(process_count() if is_distributed()
+                               else torch.cuda.device_count())
     return Mesh(devices, (axis,))
 
 

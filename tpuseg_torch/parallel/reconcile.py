@@ -1,5 +1,5 @@
 """Cross-shard instance-label reconciliation (port of
-``tpuseg/parallel/reconcile.py``), single-process.
+``tpuseg/parallel/reconcile.py``).
 
 Shards label instances with basin-root indices, so a basin whose root both
 shards can see gets the same root on both; two problems remain:
@@ -24,7 +24,10 @@ which orders the same.
 The tables and edge lists are bounded (``shard_max_labels`` entries a shard,
 the overlap planes' pairs), so the gathered union-find and the group
 numbering run on the host (``ops/components.union_closure``); only the
-renames of the label volumes run on the shards' devices.
+renames of the label volumes run on the shards' devices. The functions take
+a process's own shards' parts; under a process group the gathers span every
+process, each one closes and numbers the same groups, and each renames its
+own shards.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from tpuseg_torch.ops.components import rename, union_closure
 from tpuseg_torch.parallel.collectives import all_gather, pmax
+from tpuseg_torch.parallel.multihost import is_distributed
 
 #: the key of an unused table slot: after every coordinate
 _SENTINEL = np.iinfo(np.int64).max
@@ -79,9 +83,13 @@ def boundary_edges(overlap_mine: torch.Tensor,
 
 def _gathered_closure(edge_parts):
     """The closure of every shard's edges (``all_gather`` + one union-find
-    on the host): ``(keys, reps)`` as numpy."""
+    on the host): ``(keys, reps)`` as numpy. Under a process group every
+    process gathers, with or without edges of its own."""
     edges = [e for e in edge_parts if e is not None and e.numel()]
-    if not edges:
+    if is_distributed():
+        edges = [e.to(torch.int64) for e in edges] or [
+            torch.zeros((0, 2), dtype=torch.int64)]
+    elif not edges:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     return union_closure(all_gather(edges).cpu().numpy().astype(np.int64))
 

@@ -1,5 +1,4 @@
-"""Weakly-supervised training loop on one device (port of
-``tpuseg/train/loop.py``), with
+"""Weakly-supervised training loop (port of ``tpuseg/train/loop.py``), with
 
 * JSONL metrics including Mvox/s;
 * periodic validation and the best-val-loss checkpoint under
@@ -7,8 +6,15 @@
 * checkpoints carrying parameters, optimizer state, BatchNorm statistics,
   the step, the sampler state and the best val loss, for exact resume.
 
-The JAX loop builds a data-parallel mesh by itself when it sees several
-devices; this one never does: it trains on the one device it is given.
+One process trains on the one device it is given. Under a multi-process
+runtime (``parallel/multihost.py``, more than one process) it trains
+data-parallel, as the JAX loop does when it sees several devices
+(``train/dp.py``): each process draws the same global batch and steps on
+its slice, on its own device; ``data.batch_size`` must divide by the
+process count. Rank 0 alone writes the checkpoints and the JSONL (the other
+ranks wait at a barrier after each save); ``resume`` restores every rank
+from the same directory; validation runs on every rank's replica and rank
+0 logs it; Mvox/s counts the global batch.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from tpuseg_torch.data.sampler import PatchSampler
 from tpuseg_torch.data.synthetic import SyntheticVolume
 from tpuseg_torch.models import build_model
 from tpuseg_torch.models.blocks import BatchNorm
+from tpuseg_torch.parallel.multihost import (barrier, is_multiprocess,
+                                             process_count, process_device,
+                                             process_index)
 from tpuseg_torch.train.step import create_train_state, make_train_step
 from tpuseg_torch.utils.logging import MetricsLogger
 
@@ -69,10 +78,19 @@ def train(
     Validation: pass ``val_volumes``, or set ``cfg.train.val_fraction`` > 0
     to hold out part of ``volumes`` (``train/val.split_volumes``; a resume
     re-derives the same split). Val metrics land in the same JSONL/history
-    stream as ``val_*`` keys."""
+    stream as ``val_*`` keys. Under a multi-process runtime every process
+    calls ``train`` with the same arguments (see the module docstring)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: CUDA is not available")
+    dp = is_multiprocess()
+    if dp:
+        if cfg.data.batch_size % process_count():
+            raise ValueError(
+                f"data.batch_size {cfg.data.batch_size} does not divide over "
+                f"{process_count()} processes")
+        device = process_device(device)
+    writer = process_index() == 0
     model = build_model(cfg.model, seed=cfg.train.seed)
     for m in model.modules():      # flax's initial statistics
         if isinstance(m, BatchNorm):
@@ -116,9 +134,20 @@ def train(
         sampler.load_state_dict(meta["sampler"])
         best_val = float(meta.get("best_val", best_val))
 
-    step_fn = make_train_step(model, cfg, grad_accum=cfg.train.grad_accum)
-    put = _uploader(device)
-    logger = MetricsLogger(log_path, echo=False)
+    upload = _uploader(device)
+    if dp:
+        from tpuseg_torch.train.dp import (local_examples, make_data_mesh,
+                                           make_dp_train_step)
+
+        mesh = make_data_mesh(cfg.train.data_axis, device)
+        step_fn = make_dp_train_step(model, cfg, mesh)
+
+        def put(b):
+            return upload(local_examples(b, mesh))
+    else:
+        step_fn = make_train_step(model, cfg, grad_accum=cfg.train.grad_accum)
+        put = upload
+    logger = MetricsLogger(log_path if writer else None, echo=False)
     step_seed = cfg.train.seed + 1
     voxels_per_batch = cfg.data.batch_size * int(np.prod(cfg.data.patch_size))
 
@@ -131,9 +160,11 @@ def train(
         feed = _SyncFeed(sampler, put)
 
     def save(manager, step, meta):
-        manager.save(step, state.params(), state.opt.state_dict(),
-                     meta={"step": step, "config": cfg.to_dict(), **meta},
-                     batch_stats=state.batch_stats())
+        if writer:
+            manager.save(step, state.params(), state.opt.state_dict(),
+                         meta={"step": step, "config": cfg.to_dict(), **meta},
+                         batch_stats=state.batch_stats())
+        barrier()
 
     history = []
     try:

@@ -10,6 +10,15 @@ State is a :class:`TrainState`: the model (parameters and BatchNorm running
 statistics, updated in place by the train-mode forward), the optimizer state
 and the step count.
 
+Data parallelism (``axis_name``: a ``torch.distributed`` process group, see
+``train/dp.py``): each rank steps on its slice of the global batch, its
+examples numbered from ``rank * local batch`` so that the augmentation draws
+the single-device run's; after the backward pass the gradients and the
+metrics are averaged over the ranks in one flattened buffer, so the norm,
+the clipping and AdamW run identically on every rank. The reduction is
+explicit rather than ``DistributedDataParallel``'s, whose reducer hooks
+the wrapper's forward (the fused apply calls submodules directly).
+
 The optimizer reproduces ``optax.chain(clip_by_global_norm(1.0),
 adamw(warmup_cosine_decay_schedule(...)))`` (``make_optimizer``):
 
@@ -25,10 +34,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuseg_torch.core import Config, TrainConfig
 from tpuseg_torch.data.augment import (apply_augment, apply_zscale,
@@ -36,6 +46,7 @@ from tpuseg_torch.data.augment import (apply_augment, apply_zscale,
 from tpuseg_torch.data.normalize import histogram_percentile_normalize
 from tpuseg_torch.data.weak_targets import make_weak_targets
 from tpuseg_torch.losses import total_loss
+from tpuseg_torch.parallel.collectives import group_mean
 
 # random streams of one example (the JAX package's fold_in(key, idx) and
 # fold_in(fold_in(key, idx), 1))
@@ -195,13 +206,25 @@ def loss_fn(model, batch, cfg: Config, seed: int, step: int,
     return total_loss(out, tgts, cfg.train)
 
 
+def _flatten(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors.values()])
+
+
+def _unflatten(flat: torch.Tensor, like: Dict[str, torch.Tensor]) -> dict:
+    """``flat`` cut back into tensors shaped as ``like``'s values."""
+    out, at = {}, 0
+    for k, t in like.items():
+        out[k] = flat[at:at + t.numel()].view_as(t)
+        at += t.numel()
+    return out
+
+
 def global_norm(tensors) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum of squares of every entry."""
     return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
 
 
-def make_train_step(model, cfg: Config, axis_name: Optional[str] = None,
-                    grad_accum: int = 1):
+def make_train_step(model, cfg: Config, axis_name=None, grad_accum: int = 1):
     """Build ``step(state, batch, seed) -> metrics``: one optimizer update of
     ``state`` in place; metrics (0-d device tensors) ``loss``,
     ``peak_loss``, ``fg_loss`` and ``grad_norm`` (before clipping).
@@ -209,10 +232,13 @@ def make_train_step(model, cfg: Config, axis_name: Optional[str] = None,
     ``seed`` keys the augmentation (the JAX loop's ``train.seed + 1``);
     ``grad_accum`` > 1 splits the batch into that many microbatches whose
     gradients and metrics are averaged before one update, BatchNorm
-    statistics carrying from one microbatch to the next."""
-    if axis_name is not None:
-        raise NotImplementedError("data-parallel training (axis_name) is not "
-                                  "ported yet; see ROADMAP.md")
+    statistics carrying from one microbatch to the next.
+
+    ``axis_name``: a process group of data parallelism (the JAX package's
+    mesh axis name); ``batch`` is then this rank's slice of the global
+    batch, and the model's BatchNorms should share its statistics
+    (``train/dp.make_dp_train_step`` sets both up)."""
+    group = axis_name
     apply_fn = None
     if cfg.train.apply_impl == "fused":
         from tpuseg_torch.models.fused_train import make_fused_train_apply
@@ -235,11 +261,14 @@ def make_train_step(model, cfg: Config, axis_name: Optional[str] = None,
             raise ValueError(f"batch {b} does not split into {grad_accum} "
                              "microbatches")
         mb = b // grad_accum
+        # global index of this rank's first example: the augmentation keys
+        # of a single-device run
+        offset = 0 if group is None else dist.get_rank(group) * b
         macc = None
         for j in range(grad_accum):
             micro = {k: v[j * mb:(j + 1) * mb] for k, v in batch.items()}
             loss, metrics = loss_fn(model, micro, cfg, seed, state.step,
-                                    j * mb, apply_fn)
+                                    offset + j * mb, apply_fn)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             macc = metrics if macc is None else {
@@ -248,6 +277,13 @@ def make_train_step(model, cfg: Config, axis_name: Optional[str] = None,
                  for k, p in params.items()}
         if grad_accum > 1:
             macc = {k: v / grad_accum for k, v in macc.items()}
+        if group is not None:
+            # one all-reduce: the gradients, then the metrics
+            flat = group_mean(torch.cat([_flatten(grads), _flatten(macc)]),
+                              group)
+            n = sum(g.numel() for g in grads.values())
+            grads, macc = _unflatten(flat[:n], grads), _unflatten(flat[n:],
+                                                                 macc)
         gnorm = global_norm(grads.values())
         state.opt.update(params, grads, gnorm)
         for p in params.values():
