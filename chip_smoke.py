@@ -158,14 +158,38 @@ Phases, in order; any failure raises and exits non-zero:
     shards' tiles give them, wall time and peak device memory per process
     beside the single-process call's; (e) NCCL on a group of one: (a)'s DP
     step equal to the step without a group, bitwise, and ``--shard z2``
-    equal to (c)'s single-process labels.
+    equal to (c)'s single-process labels;
+17. (run after phase 9, with its checkpoint) the evaluation surface on the
+    five adversarial fixtures of the JAX package's bench.py c5 quality
+    matrix (``synthesize_touching_volume``, 96x512x512, 150 touching pairs
+    and 100 singles each: touch60_snr20, touch60_snr8, touch50_overlap,
+    touch70_gradient, touch65_aniso035), each under bench.py's c3
+    configuration (bf16, fused apply, tiles (96, 256, 512) + halo (0, 8,
+    0), peak threshold 0.35) calibrated from its annotations: (a) each
+    through ``make_infer_fn``, F1@IoU0.5, centre F1 and centre recall
+    beside the JAX package's record (touch60_snr20 must reach F1@IoU0.5
+    0.5); (b) the five through ``make_batched_infer_fn`` equal to
+    ``make_infer_fn`` per volume elementwise, with the wall times of both;
+    (e) ``cli.export`` of the checkpoint loaded back: equal labels; (g)
+    ``cli.train`` 2 steps and ``cli.infer`` with ``model.norm="group"``,
+    ``model.activation="gelu"`` (K1-K3 launched, K4 not); then, after the
+    launch count is read, (c) K1-K3 against their twins on touch60_snr20's
+    trained probabilities, its calibrated watershed against its plain run
+    and ``seed_labels_from_peaks`` through K5 against the plain NMS; (d)
+    ``python -m tpuseg_torch.cli.evaluate`` (IoU and centre criterion, two
+    processes) on its labels and ground truth equal to the in-process
+    ``instance_metrics`` + ``voxel_metrics``, and the card's F1 helpers
+    (which phases 5, 9 and 13-17 score with) equal to both; (f)
+    ``measure_rf_radius`` of the trained net on a 128^3 probe, in bf16 and
+    with its weights in float32.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-16 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-17 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
-path of phase 14, on the sharded paths of phase 15 and in the worker
-processes of phase 16, and its bound: the
+path of phase 14, on the sharded paths of phase 15, in the worker
+processes of phase 16 and on the touching fixtures of phase 17, and its
+bound: the
 larger of its bytes over the card's memory rate and its operations over
 the card's peak rate, from this run's shapes) and
 nvidia-smi's ``name, power.limit``; the last line is
@@ -263,6 +287,31 @@ MP_DP_STEPS = 5                         # phase 16: DP steps of (a)
 MP_DP_NORM_RTOL = 5e-3                  # (a) step 1: gradient norm, bf16
 MP_DP_GRAD_RTOL = 1e-3                  # (a) step 1 in f32: gradient, L2
 MP_STREAM_CHUNK = 48                    # phase 16 (d): two chunks of the stack
+# phase 17: bench.py's c5 quality matrix (bench.py:346-402) on the port: the
+# five adversarial fixtures, each scored under bench.py's c3 configuration
+# (bench.py:323-328) calibrated from its own annotations
+C5_KW = dict(shape=MAIN_SHAPE, num_pairs=150, num_singles=100,
+             radius_range=(5.0, 8.0), seed=17)
+C5_FIXTURES = {
+    "touch60_snr20": dict(touch_factor=0.6, noise=0.05),
+    "touch60_snr8": dict(touch_factor=0.6, noise=0.12),
+    "touch50_overlap": dict(touch_factor=0.5, noise=0.05),
+    "touch70_gradient": dict(touch_factor=0.7, noise=0.05, gradient=0.3),
+    "touch65_aniso035": dict(touch_factor=0.65, noise=0.05,
+                             anisotropy=(0.35, 1.0, 1.0)),
+}
+C3_SETS = {"infer.tile": [96, 256, 512], "infer.halo": [0, 8, 0],
+           "infer.apply_impl": "fused", "postproc.peak_threshold": 0.35}
+# the JAX package's record of the same cells on a TPU (BENCH_r05.json):
+# F1@IoU0.5, f1_center, recall_center (recorded for the aniso leg only)
+C5_JAX = {"touch60_snr20": (0.98, 0.9975, None),
+          "touch60_snr8": (0.9876, 0.9925, None),
+          "touch50_overlap": (0.9463, 0.9888, None),
+          "touch70_gradient": (0.9702, 0.9926, None),
+          "touch65_aniso035": (0.8801, 0.9541, 0.935)}
+TOUCHING_KERNELS = INFER_KERNELS + ("fused_convblock",)
+RF_PROBE = 128                          # > 2 x the 4-level net's radius (~53)
+VARIANT_STEPS = 2                       # (g): cli.train steps of the variant
 
 
 class AnalyticNet(nn.Module):
@@ -975,7 +1024,6 @@ def post_stage_with_chain(stage_post, logits, labels) -> None:
 
 def phase_analytic(sv):
     from tpuseg_torch.core import Config, InferConfig
-    from tpuseg_torch.eval import instance_metrics
     from tpuseg_torch.infer import make_infer_stages
 
     cfg = Config(infer=InferConfig(compute_dtype="float32"))
@@ -985,8 +1033,8 @@ def phase_analytic(sv):
     if not np.array_equal(got, want):
         raise AssertionError(f"analytic pipeline: kernels != twins on "
                              f"{int((got != want).sum())} voxels")
-    m = instance_metrics(got, sv.labels, iou_threshold=0.5)
-    c = instance_metrics(got, sv.labels, criterion="center")
+    m = f1_iou50_on_card(got, sv.labels)
+    c = center_f1_on_card(got, sv.labels)
     print(f"[5] analytic pipeline: kernels == twins elementwise; "
           f"{m['n_pred']} instances vs {m['n_gt']} GT, F1@IoU0.5 "
           f"{m['f1']:.4f}, center-hit F1 {c['f1']:.4f}")
@@ -1171,7 +1219,6 @@ def phase_trained_quality(sv, tmp: str):
     from tpuseg_torch.cli import infer as cli_infer
     from tpuseg_torch.core import Config
     from tpuseg_torch.data import save_annotations, synthesize_volume
-    from tpuseg_torch.eval import instance_metrics
     from tpuseg_torch.train import train
 
     ckpt_dir = os.path.join(tmp, "quality_ckpt")
@@ -1215,8 +1262,8 @@ def phase_trained_quality(sv, tmp: str):
                                  vol_path, "--output", out_path, *extra])
         wall = time.perf_counter() - t0
         labels = np.load(out_path)
-        m = instance_metrics(labels, sv.labels, iou_threshold=0.5)
-        c = instance_metrics(labels, sv.labels, criterion="center")
+        m = f1_iou50_on_card(labels, sv.labels)
+        c = center_f1_on_card(labels, sv.labels)
         f1[tag] = m["f1"]
         print(f"[9] cli.infer, trained checkpoint, {tag} post-processing, "
               f"{MAIN_SHAPE}: status {status}, {m['n_pred']} instances vs "
@@ -1247,7 +1294,6 @@ def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     must launch K1-K3 and report convergence. Nothing is caught: a shape a
     kernel or cuDNN cannot take fails the phase."""
     from tpuseg_torch.cli import infer as cli_infer
-    from tpuseg_torch.eval import instance_metrics
 
     configs = (
         ("a: fp32, one tile (96,512,512), no halo, module forward", None,
@@ -1273,7 +1319,7 @@ def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
         launches, mma = _launches(), _mma_launches()["fused_convblock"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         labels = np.load(out_path)
-        m = instance_metrics(labels, sv.labels, iou_threshold=0.5)
+        m = f1_iou50_on_card(labels, sv.labels)
         print(f"[13] cli.infer, trained checkpoint, config {tag}: status "
               f"{status} ({'flood truncated' if status == 4 else 'converged'}"
               f"), wall {wall:.3f} s incl. load and save "
@@ -2699,6 +2745,317 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     return acc
 
 
+# ---------------------------------------------------------------- phase 17
+
+def center_f1_on_card(pred: np.ndarray, gt: np.ndarray) -> dict:
+    """``instance_metrics(pred, gt, criterion="center")`` on the card: a GT
+    instance is hit when the predicted instance at its rounded centroid
+    (half to even, as ``np.round``) is positive and not yet claimed, so
+    ``tp`` is the number of distinct positive ids at the GT centroids. The
+    coordinate sums are integers below 2**53, exact in float64 in any
+    order."""
+    p = torch.from_numpy(np.asarray(pred)).cuda()
+    g = torch.from_numpy(np.asarray(gt)).cuda().reshape(-1)
+    ids, inv = torch.unique(g, return_inverse=True)
+    counts = torch.bincount(inv, minlength=ids.numel()).double()
+    lin = torch.arange(g.numel(), device=g.device)
+    hw, w = p.shape[1] * p.shape[2], p.shape[2]
+    cen = torch.stack([torch.bincount(inv, weights=c.double(),
+                                      minlength=ids.numel())
+                       for c in (lin // hw, (lin % hw) // w, lin % w)], 1)
+    del lin
+    cen = torch.round(cen[ids > 0] / counts[ids > 0, None]).long()
+    hit = p[cen[:, 0], cen[:, 1], cen[:, 2]]
+    tp = int(torch.unique(hit[hit > 0]).numel())
+    n_pred = int((torch.unique(p) > 0).sum())
+    n_gt = int((ids > 0).sum())
+    del p, g, inv
+    torch.cuda.empty_cache()
+    precision = tp / n_pred if n_pred else 0.0
+    recall = tp / n_gt if n_gt else 0.0
+    f1 = 2 * precision * recall / (precision + recall) if tp else 0.0
+    return {"f1": f1, "recall": recall, "tp": tp, "n_pred": n_pred,
+            "n_gt": n_gt}
+
+
+def c5_configs(fixtures: dict):
+    """bench.py's c3 configuration (``C3_SETS``) and, per c5 fixture, c3
+    calibrated from the fixture's annotations as bench.py:372-378 does: the
+    volume-matched fg fraction and the per-axis NMS radius."""
+    import dataclasses
+
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.ops.calibrate import (expected_fg_fraction,
+                                            nms_radius_from_half_sizes)
+
+    c3 = Config().override(**C3_SETS)
+    return c3, {name: dataclasses.replace(c3, postproc=dataclasses.replace(
+        c3.postproc,
+        fg_target_fraction=expected_fg_fraction(tv.half_sizes, tv.image.size),
+        nms_radius=nms_radius_from_half_sizes(tv.half_sizes)))
+        for name, tv in fixtures.items()}
+
+
+def phase_touching_quality(model, fixtures: dict, vols, cfgs: dict) -> dict:
+    """(a) Each c5 fixture through ``make_infer_fn`` under its calibrated
+    c3 configuration: F1@IoU0.5, centre F1 and recall beside the JAX
+    package's record; touch60_snr20 must reach F1@IoU0.5 0.5."""
+    from tpuseg_torch.infer import make_infer_fn
+
+    labels = {}
+    for i, (name, tv) in enumerate(fixtures.items()):
+        t0 = time.perf_counter()
+        labels[name] = make_infer_fn(model, cfgs[name])(vols[i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = f1_iou50_on_card(labels[name].cpu().numpy(), tv.labels)
+        c = center_f1_on_card(labels[name].cpu().numpy(), tv.labels)
+        jf1, jcf1, jrec = C5_JAX[name]
+        print(f"[17] {name}: nms_radius {tuple(cfgs[name].postproc.nms_radius)}"
+              f", {m['n_pred']} instances vs {m['n_gt']} GT, F1@IoU0.5 "
+              f"{m['f1']:.4f}, f1_center {c['f1']:.4f}, recall_center "
+              f"{c['recall']:.4f} (wall {wall:.3f} s) | the JAX package on "
+              f"a TPU (BENCH_r05.json): F1@IoU0.5 {jf1}, f1_center {jcf1}"
+              + (f", recall_center {jrec}" if jrec is not None else ""),
+              flush=True)
+        if name == "touch60_snr20" and m["f1"] < 0.5:
+            raise AssertionError(f"[17] {name}: calibrated F1@IoU0.5 "
+                                 f"{m['f1']:.4f} < 0.5")
+    return labels
+
+
+def phase_touching_batched(model, vols, cfg) -> None:
+    """(b) The five fixtures through ``make_batched_infer_fn`` under one
+    configuration (touch60_snr20's calibrated c3) == ``make_infer_fn`` on
+    each volume, elementwise; wall times in turns (batched, the five single
+    calls, batched)."""
+    from tpuseg_torch.infer import make_batched_infer_fn, make_infer_fn
+    from tpuseg_torch.utils import hard_sync
+
+    single, batched = make_infer_fn(model, cfg), make_batched_infer_fn(
+        model, cfg)
+    walls = {"batched": [], "single": []}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hard_sync(fn())
+        walls[tag].append(time.perf_counter() - t0)
+        return out
+
+    got = timed("batched", lambda: batched(vols))
+    want = timed("single", lambda: [single(v) for v in vols])
+    timed("batched", lambda: batched(vols))
+    for i, w in enumerate(want):
+        if not torch.equal(got[i], w):
+            raise AssertionError(f"[17] batched labels of volume {i} != "
+                                 f"make_infer_fn's on {int((got[i] != w).sum())}"
+                                 " voxels")
+    n = len(vols)
+    print(f"[17] make_batched_infer_fn on ({n}, {', '.join(map(str, MAIN_SHAPE))})"
+          f" == make_infer_fn per volume elementwise; wall: batched "
+          f"{walls['batched'][0]:.3f} / {walls['batched'][1]:.3f} s, the {n} "
+          f"single calls {walls['single'][0]:.3f} s in all", flush=True)
+
+
+def phase_touching_export(model, ckpt_dir: str, vol, cfg, labels,
+                          tmp: str) -> None:
+    """(e) ``cli.export`` of the checkpoint to a ``.pth``, loaded back into
+    the port: the labels of a fixture equal the checkpoint's."""
+    from tpuseg_torch.cli import export as cli_export
+    from tpuseg_torch.cli.common import load_model_state
+    from tpuseg_torch.infer import make_infer_fn
+    from tpuseg_torch.models import build_model
+
+    out = os.path.join(tmp, "exported.pth")
+    cli_export.main(["--checkpoint", ckpt_dir, "--output", out])
+    again = build_model(cfg.model)
+    again.load_state_dict(load_model_state(out))
+    got = make_infer_fn(again.to(vol.device), cfg)(vol)
+    if not torch.equal(got, labels):
+        raise AssertionError("[17] the exported .pth gives other labels on "
+                             f"{int((got != labels).sum())} voxels")
+    print("[17] cli.export -> .pth -> the port: labels equal the "
+          "checkpoint's", flush=True)
+
+
+def phase_touching_variant(vol_path: str, tmp: str) -> None:
+    """(g) ``cli.train`` and ``cli.infer`` with ``model.norm="group"``,
+    ``model.activation="gelu"`` at full width (the plain applies; K1-K3 in
+    the post-processing)."""
+    from tpuseg_torch.cli import infer as cli_infer
+    from tpuseg_torch.cli import train as cli_train
+
+    ck = os.path.join(tmp, "variant_ckpt")
+    sets = ["--set", 'model.norm="group"', "--set", 'model.activation="gelu"']
+    t0 = time.perf_counter()
+    cli_train.main(["--synthetic", "1", *sets, "--set",
+                    f"train.total_steps={VARIANT_STEPS}", "--set",
+                    "train.ckpt_dir=" + json.dumps(ck)])
+    t_train = time.perf_counter() - t0
+    out = os.path.join(tmp, "variant_labels.npy")
+    before = _launches()
+    t0 = time.perf_counter()
+    status = cli_infer.main(["--checkpoint", ck, "--input", vol_path,
+                             "--output", out, "--report-convergence", *sets])
+    t_infer = time.perf_counter() - t0
+    ran = {k: _launches()[k] - before[k] for k in before}
+    labels = np.load(out)
+    print(f"[17] group norm + GELU: cli.train {VARIANT_STEPS} steps "
+          f"({t_train:.1f} s incl. set-up), cli.infer status {status}, "
+          f"{int(labels.max())} instances ({t_infer:.1f} s incl. set-up); "
+          f"kernel launches of the inference {ran}", flush=True)
+    if status not in (0, 4) or labels.shape != MAIN_SHAPE:
+        raise AssertionError(f"[17] variant cli.infer: status {status}, "
+                             f"labels {labels.shape}")
+    missing = [k for k in INFER_KERNELS if ran[k] == 0]
+    if missing or ran["fused_convblock"]:
+        raise AssertionError(f"[17] variant inference launched {ran}")
+
+
+def phase_touching_checks(model, fixtures: dict, vols, cfgs: dict,
+                          labels: dict, tmp: str) -> None:
+    """(c) K1-K3 against their twins on the trained probabilities of
+    touch60_snr20 (``compare_kernels``; then the watershed at its
+    calibrated thresholds, and K5 in ``seed_labels_from_peaks``, against
+    the plain versions); (d) its labels and ground truth through
+    ``python -m tpuseg_torch.cli.evaluate`` (the IoU and the centre
+    criterion, two processes) == the in-process ``instance_metrics`` +
+    ``voxel_metrics``, and the card's F1 helpers == both; (f)
+    ``measure_rf_radius`` of the trained net, in bf16 and in float32."""
+    import dataclasses
+    import subprocess
+    import sys
+
+    from tpuseg_torch.eval import instance_metrics, voxel_metrics
+    from tpuseg_torch.infer import (make_infer_stages, measure_rf_radius,
+                                    rf_radius_bound)
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.ops import seed_labels_from_peaks, watershed
+    from tpuseg_torch.ops.calibrate import threshold_for_fraction
+
+    name = "touch60_snr20"
+    tv, cfg = fixtures[name], cfgs[name]
+    pred = labels[name].cpu().numpy()
+    paths = [os.path.join(tmp, f) for f in ("c5_pred.npy", "c5_gt.npy")]
+    np.save(paths[0], pred)
+    np.save(paths[1], tv.labels)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpuseg_torch.cli.evaluate", "--pred", paths[0],
+         "--gt", paths[1], *extra], cwd=here, stdout=subprocess.PIPE,
+        text=True) for extra in ([], ["--criterion", "center"])]
+    try:
+        logits = make_infer_stages(model, cfg)[1](vols[0])
+        fg, pk = (torch.sigmoid(logits[k]).float()
+                  for k in ("fg_logits", "peak_logits"))
+        del logits
+        recs = compare_kernels(fg, pk, timed=False)
+        pp = cfg.postproc
+        thr = float(threshold_for_fraction(
+            fg, pp.fg_target_fraction,
+            sample_stride=cfg.data.normalize_sample_stride))
+        kw = dict(peak_threshold=pp.peak_threshold, fg_threshold=thr,
+                  peak_radius=pp.nms_radius, flood_iters=pp.flood_iters)
+        ws = watershed(fg, pk, **kw)
+        if not torch.equal(ws, watershed(fg, pk, plain=True, **kw)):
+            raise AssertionError("[17] calibrated watershed: kernels != twins")
+        seeds = seed_labels_from_peaks(pk, pp.peak_threshold, pp.nms_radius,
+                                       nms_impl="pallas")
+        if not torch.equal(seeds, seed_labels_from_peaks(
+                pk, pp.peak_threshold, pp.nms_radius)):
+            raise AssertionError("[17] seed labels: K5 != plain NMS")
+        del fg, pk, ws, seeds
+        print(f"[17] {name}, trained probabilities: {', '.join(recs)} == "
+              f"their twins elementwise; the watershed at the calibrated threshold {thr:.4f} and "
+              f"radius {tuple(pp.nms_radius)} == its plain run; "
+              f"seed_labels_from_peaks with K5 == with the plain NMS",
+              flush=True)
+        m = instance_metrics(pred, tv.labels)
+        m.update(voxel_metrics(pred, tv.labels))
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"[17] cli.evaluate exited "
+                             f"{[p.returncode for p in procs]}")
+    got, center = (json.loads(o) for o in outs)
+    if got != m:
+        raise AssertionError(f"[17] cli.evaluate {got} != in-process {m}")
+    card, card_c = (f(pred, tv.labels) for f in (f1_iou50_on_card,
+                                                  center_f1_on_card))
+    if (card["tp"], card["n_pred"], card["n_gt"]) != (m["tp"], m["n_pred"],
+                                                      m["n_gt"]) or \
+            (card_c["tp"], card_c["n_pred"]) != (center["tp"],
+                                                 center["n_pred"]):
+        raise AssertionError(f"[17] the card's F1 helpers {card} {card_c} != "
+                             f"instance_metrics {m} {center}")
+    print(f"[17] cli.evaluate JSON == in-process instance_metrics + "
+          f"voxel_metrics (F1@IoU0.5 {m['f1']:.4f}, voxel_dice "
+          f"{m['voxel_dice']:.4f}); centre criterion {center['f1']:.4f}; the "
+          f"card's F1 helpers agree with both", flush=True)
+    # the trained net as it runs (bf16), and its weights in float32
+    f32 = build_model(dataclasses.replace(model.config,
+                                          compute_dtype="float32"))
+    f32.load_state_dict(model.state_dict())
+    f32.to(next(model.parameters()).device)
+    levels = len(model.config.features)
+    bound_rf = 8 * 2 ** (levels - 1) - 4
+    t0 = time.perf_counter()
+    rf = {dt: measure_rf_radius(m, probe_size=RF_PROBE)
+          for dt, m in (("bf16", model), ("float32", f32))}
+    print(f"[17] measured receptive-field radius of the trained "
+          f"{levels}-level net: {rf['bf16']} in bf16, {rf['float32']} in "
+          f"float32 (probe {RF_PROBE}^3, {time.perf_counter() - t0:.1f} s; "
+          f"recorded for the JAX package: {rf_radius_bound(levels)}; "
+          f"analytic bound {bound_rf}; infer.shard_halo default 32)",
+          flush=True)
+    if not all(0 < r <= min(bound_rf, RF_PROBE // 2 - 1)
+               for r in rf.values()):
+        raise AssertionError(f"[17] receptive-field radius {rf} outside "
+                             "(0, the analytic bound]")
+
+
+def phase_touching(ckpt_dir: str, tmp: str) -> dict:
+    """Phase 17: bench.py's c5 fixtures and the evaluation surface on the
+    port, with phase 9's checkpoint. Returns the launches of the main-path
+    legs (a), (b), (e) and (g); (c), (d) and (f) run after the count is
+    read."""
+    from tpuseg_torch.data import synthesize_touching_volume
+
+    t0 = time.perf_counter()
+    fixtures = {name: synthesize_touching_volume(**C5_KW, **kw)
+                for name, kw in C5_FIXTURES.items()}
+    print(f"[17] synthesized the five c5 fixtures {MAIN_SHAPE} in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{n} {int(tv.labels.max())} nuclei"
+                      for n, tv in fixtures.items()), flush=True)
+    c3, cfgs = c5_configs(fixtures)
+    model = trained_model(ckpt_dir, c3)
+    vols = torch.stack([torch.from_numpy(tv.image)
+                        for tv in fixtures.values()]).cuda()
+    vol_path = os.path.join(tmp, "c5_touch60_snr20.npy")
+    np.save(vol_path, fixtures["touch60_snr20"].image)
+    _reset_launches()
+    labels = phase_touching_quality(model, fixtures, vols, cfgs)
+    phase_touching_batched(model, vols, cfgs["touch60_snr20"])
+    phase_touching_export(model, ckpt_dir, vols[0], cfgs["touch60_snr20"],
+                          labels["touch60_snr20"], tmp)
+    phase_touching_variant(vol_path, tmp)
+    launches = _launches()
+    missing = [k for k in TOUCHING_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[17] the touching legs never launched "
+                             f"{missing}: {launches}")
+    phase_touching_checks(model, fixtures, vols, cfgs, labels, tmp)
+    del vols
+    torch.cuda.empty_cache()
+    return launches
+
+
 
 def check_block(name, got, want, dtype) -> float:
     """Max abs error of the K4 kernel against its twin; raises beyond the
@@ -3096,8 +3453,8 @@ def main(argv=None):
     only = {int(p) for p in args.phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if only & {13, 14, 15, 16}:
-        only.add(9)             # phases 13-16 infer with phase 9's checkpoint
+    if only & {13, 14, 15, 16, 17}:
+        only.add(9)             # phases 13-17 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -3109,7 +3466,7 @@ def main(argv=None):
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
     kernels, launches, tile_launches = {}, {}, {}
-    streamed, sharded, multiproc = {}, {}, {}
+    streamed, sharded, multiproc, touching = {}, {}, {}, {}
     if want(3):
         kernels.update(_timed("phase 3", phase_kernels, sv.image))
     if want(4):
@@ -3146,6 +3503,9 @@ def main(argv=None):
             if want(16):
                 multiproc = _timed("phase 16", phase_multiprocess, sv,
                                    *trained[:3], tmp)
+            if want(17):
+                touching = _timed("phase 17", phase_touching, trained[0],
+                                  tmp)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):
@@ -3166,6 +3526,7 @@ def main(argv=None):
                "streamed_launches": streamed.get(k, 0),
                "sharded_launches": sharded.get(k, 0),
                "multiprocess_launches": multiproc.get(k, 0),
+               "touching_launches": touching.get(k, 0),
                **({"tile_launches": tile_launches[k]}
                   if k in tile_launches else {}), **r}
               for k, r in kernels.items()]

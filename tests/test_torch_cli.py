@@ -373,6 +373,9 @@ import chip_smoke
 import tpuseg_torch
 from tpuseg_torch import ckpt, core, data, eval, infer, models, ops
 from tpuseg_torch.cli import common, infer as cli_infer, train as cli_train
+from tpuseg_torch.cli import evaluate as cli_evaluate, export as cli_export
+from tpuseg_torch.eval import viz
+from tpuseg_torch.utils import profiling
 from tpuseg_torch.core import Config, InferConfig
 from tpuseg_torch import losses, train
 from tpuseg_torch.models import fused_eval, fused_train
@@ -400,6 +403,22 @@ with tempfile.TemporaryDirectory() as tmp:
         "--output", os.path.join(tmp, "o.npy"),
         "--config", os.path.join(tmp, "c.json")])
     assert status == 0 and np.load(os.path.join(tmp, "o.npy")).shape == (12, 24, 40)
+    # the evaluation surface: export, evaluate, batched inference, viz
+    cli_export.main(["--checkpoint", os.path.join(tmp, "m.pth"), "--output",
+                     os.path.join(tmp, "x.pth"), "--config",
+                     os.path.join(tmp, "c.json")])
+    cli_evaluate.main(["--pred", os.path.join(tmp, "o.npy"),
+                       "--gt", os.path.join(tmp, "o.npy")])
+    tv = data.synthesize_touching_volume(shape=(12, 24, 40), num_pairs=2,
+                                         num_singles=1, seed=1)
+    small = Config(infer=InferConfig(tile=(8, 16, 32), halo=2,
+                                     compute_dtype="float32"))
+    batched = infer.make_batched_infer_fn(chip_smoke.AnalyticNet(), small)(
+        torch.from_numpy(np.stack([sv.image, tv.image])))
+    assert batched.shape == (2, 12, 24, 40)
+    assert viz.overlay(tv.image, batched[1].numpy()).shape == (12, 24, 40, 3)
+    with profiling.trace(None):
+        profiling.hard_sync(batched)
     # training through its entry point, fused apply, then inference from the
     # trainer's checkpoint directory
     ck = os.path.join(tmp, "ck")

@@ -127,8 +127,12 @@ def test_build_model_is_seeded():
 
 
 def test_unported_model_config_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet3D(port_config(ModelConfig(norm="group", **SMALL)))
+    """Every norm and activation of the JAX package is ported
+    (tests/test_torch_model_variants.py); a name it does not know is
+    refused."""
+    for kw in ({"norm": "layer"}, {"activation": "tanh"}):
+        with pytest.raises(ValueError, match="unknown norm"):
+            UNet3D(port_config(ModelConfig(**kw, **SMALL)))
 
 
 def test_tile_helpers_match():

@@ -115,12 +115,14 @@ def test_watershed_matches_reference():
     ({"method": "bogus"}, ValueError, "unknown watershed method"),
     ({"label_space": "dense"}, NotImplementedError, "ROADMAP"),
     ({"nms_impl": "bogus"}, ValueError, "unknown nms_impl"),
-    ({"resolve_impl": "xla"}, NotImplementedError, "ROADMAP")],
+    ({"resolve_impl": "bogus"}, ValueError, "unknown resolve_impl")],
     ids=["kw0", "kw1", "kw2", "kw3"])
 def test_watershed_unported_settings_raise(kw, exc, match):
-    """Settings not ported yet raise NotImplementedError; unknown values
-    raise ValueError, as in the JAX package (``method="flood"`` and
-    ``nms_impl="pallas"`` are ported: tests/test_torch_nms.py)."""
+    """The dense label space, a TPU workaround that is not ported, raises
+    NotImplementedError; unknown values raise ValueError, as in the JAX
+    package (``method="flood"`` and ``nms_impl="pallas"`` are ported:
+    tests/test_torch_nms.py; ``resolve_impl="xla"``:
+    tests/test_torch_postproc_extras.py)."""
     fg_prob, peak = _maps(0)
     with pytest.raises(exc, match=match):
         watershed(_t(fg_prob), _t(peak), **kw)
@@ -180,8 +182,8 @@ def test_volume_io_roundtrip(tmp_path, ext):
     path = str(tmp_path / f"v{ext}")
     save_volume(path, vol)
     np.testing.assert_array_equal(load_volume(path), vol)
-    with pytest.raises(NotImplementedError):
-        load_volume(str(tmp_path / "v.tiff"))
+    with pytest.raises(ValueError, match="unsupported volume extension"):
+        load_volume(str(tmp_path / "v.zarr"))
 
 
 @pytest.mark.parametrize("frac,stride", [(0.05, 1), (0.3, 4), (0.0, 1)])

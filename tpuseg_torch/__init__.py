@@ -16,8 +16,10 @@ path (``cli/train.py`` -> ``train/loop.train``), with a
 hand-written CUDA kernel for every Pallas kernel of the JAX package: the
 watershed's seed, chase and flood passes, the peak NMS, the fused eval
 ConvBlock and the training path's full-resolution 3x3x3 conv (``csrc/``,
-built by ``ops/_build.py`` at first use). ROADMAP.md lists what is still to
-come.
+built by ``ops/_build.py`` at first use). Also the evaluation surface
+(``cli/evaluate.py``, ``cli/export.py``, ``eval/viz.py``, batched inference,
+the touching-nuclei fixture) and every opt-in of the JAX package but the
+TPU workarounds that ROADMAP.md's port rules leave out.
 """
 
 __version__ = "0.1.0"

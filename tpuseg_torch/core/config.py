@@ -51,13 +51,13 @@ class PostprocConfig:
                                   # ops/seed.py) | "pallas" (the peak-NMS
                                   # kernel, ops/nms.py, then the unfused
                                   # composition — ops/watershed.py)
-    resolve_impl: str = "auto"    # chain-resolution/flood backend: the port
-                                  # runs the kernel path of "auto"/"pallas"
+    resolve_impl: str = "auto"    # chain-resolution/flood backend: "auto" /
+                                  # "pallas" (the kernels) | "xla" (the plain
+                                  # pointer jump; ops/watershed.py)
     min_size: int = 27            # drop instances smaller than this many voxels
     flood_iters: int = 96         # cap for the flood-fill fixed point (~max object diameter)
     method: str = "ascent"        # "ascent" (steepest-ascent basins) | "flood" (iterative)
-    ascent_rounds: int = 8        # pointer-jump rounds of the JAX package's
-                                  # "xla" resolve (not ported)
+    ascent_rounds: int = 8        # pointer-jump rounds of the "xla" resolve
     fg_target_fraction: float = 0.0  # >0: auto-calibrate fg_threshold so the
                                      # predicted fg volume fraction matches this
                                      # target (ops/calibrate.py) — corrects the

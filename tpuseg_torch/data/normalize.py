@@ -79,3 +79,25 @@ def histogram_percentile_normalize(vols: torch.Tensor, pcts=(1.0, 99.8),
         vols.device)[:, :, None, None, None]
     return torch.clamp((vols - p_lo) / torch.clamp(p_hi - p_lo, min=eps),
                        0.0, 1.0)
+
+
+def percentile_normalize(vol, pcts=(1.0, 99.8), eps: float = 1e-6):
+    """Map the exact [p_lo, p_hi] percentiles of ``vol`` (a tensor, on its
+    device) to [0, 1], clipped. The percentiles are two order statistics
+    of one sort, linearly interpolated in float32 as ``jnp.percentile``'s
+    default method does (``torch.quantile`` refuses inputs above 2**24
+    elements; a 96x512x512 stack has 25.2M)."""
+    vol = torch.as_tensor(vol).float()
+    flat = torch.sort(vol.reshape(-1)).values
+    n = flat.numel()
+
+    def pct_value(p):
+        pos = np.float32(p) / np.float32(100.0) * np.float32(n - 1)
+        low = int(np.floor(pos))
+        high = min(int(np.ceil(pos)), n - 1)
+        w_high = np.float32(pos - np.float32(low))
+        return flat[low] * float(np.float32(1.0) - w_high) \
+            + flat[high] * float(w_high)
+
+    lo, hi = pct_value(pcts[0]), pct_value(pcts[1])
+    return torch.clamp((vol - lo) / torch.clamp(hi - lo, min=eps), 0.0, 1.0)

@@ -8,6 +8,10 @@ tensor on any device:
   merge (``postproc.merge_saddle_ratio > 0``) -> size filter + compact 1..K
   relabel
 
+``make_batched_infer_fn`` runs a stacked (N, D, H, W) batch through the same
+function volume by volume, and ``infer_volume`` is the one-shot
+convenience call.
+
 ``InferConfig.apply_impl`` selects the sweep's forward: "flax" is the module
 forward, "fused" the eval apply of ``models/fused_eval.py`` (the three
 full-resolution ConvBlocks on the K4 kernel).
@@ -46,7 +50,8 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
     labels = watershed(fg_prob, peak_prob, peak_threshold=pp.peak_threshold,
                        fg_threshold=fg_threshold,
                        peak_radius=pp.nms_radius, flood_iters=pp.flood_iters,
-                       method=pp.method, nms_impl=pp.nms_impl,
+                       method=pp.method, ascent_rounds=pp.ascent_rounds,
+                       nms_impl=pp.nms_impl,
                        resolve_impl=pp.resolve_impl, label_space="index",
                        plain=plain)
     diag = None
@@ -159,3 +164,32 @@ def make_infer_fn(model, cfg: Config, normalize: bool = True,
     ``diag["flood_truncated"]`` (``ops.watershed.flood_truncation_count``;
     zero iff the flood converged)."""
     return make_infer_stages(model, cfg, normalize, with_diagnostics)[0]
+
+
+def make_batched_infer_fn(model, cfg: Config, normalize: bool = True):
+    """``infer(volumes) -> int32 labels`` (N, D, H, W) for a stacked
+    (N, D, H, W) tensor: each volume normalized with its own percentiles
+    and labelled independently by :func:`make_infer_fn`'s function, one
+    after the other, into one label tensor on the volumes' device. Nothing
+    volume-sized leaves the device; the host reads are each volume's own
+    scalar reads (its 4096 histogram counts, the calibrated threshold where
+    ``postproc.fg_target_fraction > 0``, the chase's and flood's
+    convergence flags)."""
+    infer = make_infer_fn(model, cfg, normalize)
+
+    def infer_batch(volumes: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(volumes.shape, dtype=torch.int32,
+                          device=volumes.device)
+        for i in range(volumes.shape[0]):
+            out[i] = infer(volumes[i])
+        return out
+
+    return infer_batch
+
+
+def infer_volume(model, volume, cfg: Config, normalize: bool = True,
+                 device="cuda") -> torch.Tensor:
+    """One-shot :func:`make_infer_fn` on ``volume`` (array or tensor),
+    moved to ``device`` first; ``model`` must sit there."""
+    return make_infer_fn(model, cfg, normalize)(
+        torch.as_tensor(volume, device=device))

@@ -226,6 +226,7 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                             fg_threshold=fg_threshold,
                             peak_radius=pp.nms_radius,
                             flood_iters=pp.flood_iters, method=pp.method,
+                            ascent_rounds=pp.ascent_rounds,
                             nms_impl=pp.nms_impl,
                             resolve_impl=pp.resolve_impl,
                             label_space="index", plain=plain)

@@ -154,6 +154,7 @@ def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
         labels = watershed(fg, pk, peak_threshold=pp.peak_threshold,
                            fg_threshold=fg_thr, peak_radius=pp.nms_radius,
                            flood_iters=pp.flood_iters, method=pp.method,
+                           ascent_rounds=pp.ascent_rounds,
                            nms_impl=pp.nms_impl, resolve_impl=pp.resolve_impl,
                            label_space="index")
         if pp.merge_saddle_ratio > 0:
@@ -263,6 +264,7 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
             lab = watershed(fg[i], pk[i], peak_threshold=pp.peak_threshold,
                             fg_threshold=fg_thr, peak_radius=pp.nms_radius,
                             flood_iters=pp.flood_iters, method=pp.method,
+                            ascent_rounds=pp.ascent_rounds,
                             nms_impl=pp.nms_impl,
                             resolve_impl=pp.resolve_impl, label_space="index")
             n_trunc += int(flood_truncation_count(lab, fg[i] >= fg_thr))

@@ -37,6 +37,32 @@ def rf_radius_bound(levels: int) -> int:
     return measured.get(levels, 8 * 2 ** (levels - 1) - 4)
 
 
+@torch.no_grad()
+def measure_rf_radius(model, probe_size: int = 96, tol: float = 1e-7) -> int:
+    """The net's receptive-field radius, measured: the farthest voxel
+    (Chebyshev distance) whose fg logit changes when the centre voxel of a
+    zero (1, 1, p, p, p) probe is set to 10.0, in eval mode, on the device
+    of the model's parameters. Halo >= this radius makes
+    :func:`tiled_forward` voxel-exact; measured 2 levels -> 11, 3 -> 27,
+    4 -> 53. The probe must be larger than twice the radius to see it."""
+    device = next(model.parameters()).device
+    c = probe_size // 2
+    x0 = torch.zeros((1, 1, probe_size, probe_size, probe_size),
+                     device=device)
+    x1 = x0.clone()
+    x1[0, 0, c, c, c] = 10.0
+    was_training = model.training
+    model.eval()
+    try:
+        d = (model(x1)["fg_logits"] - model(x0)["fg_logits"]).abs()[0]
+    finally:
+        model.train(was_training)
+    nz = torch.nonzero(d > tol)
+    if nz.numel() == 0:
+        return 0
+    return int((nz - c).abs().max())
+
+
 def tile_grid(shape, tile) -> np.ndarray:
     """Static (N, 3) int32 table of core-tile origins covering ``shape``."""
     counts = [_cdiv(s, t) for s, t in zip(shape, tile)]

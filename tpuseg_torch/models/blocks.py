@@ -15,7 +15,13 @@ every op rounds where the JAX package's does:
   parallelism the statistics are the means over the ranks
   (``lax.pmean``), differentiably (:class:`GroupMean`);
 * ``Up`` is nearest x2, a (0, 1) pad on each axis (XLA's SAME for an even
-  kernel), then the k=2 conv (``ckpt/torch_mirror.py:68-71``).
+  kernel), then the k=2 conv (``ckpt/torch_mirror.py:68-71``);
+* ``norm="group"`` is flax's ``GroupNorm`` (epsilon 1e-6, min(num_groups,
+  features) groups) computed in float32 and rounded to the compute dtype;
+  ``norm="none"`` gives the ConvBlock's convolutions a bias
+  (``blocks.py:150-208``); ``Down`` and the up-convs always have one;
+* ``activation`` is ReLU, SiLU or GELU, the last in flax's default tanh
+  approximation (``blocks.py:36-37``).
 
 Module and parameter names are those of ``tpuseg/ckpt/torch_mirror.py``, so
 the ``.pth`` files that ``tpuseg.cli.export`` writes load as they are.
@@ -128,19 +134,49 @@ class BatchNorm(nn.Module):
                                self.running_var, self.eps)
 
 
-class ConvBlock(nn.Module):
-    """(Conv3x3x3 -> BN -> ReLU) twice."""
+class GroupNorm(nn.GroupNorm):
+    """flax's ``GroupNorm`` as the JAX package's ConvBlock runs it: float32
+    statistics and affine, the result rounded to the input's dtype."""
 
-    def __init__(self, cin: int, cout: int):
-        super().__init__()
-        self.conv0 = Conv3d(cin, cout, 3, padding=1, bias=False)
-        self.norm0 = BatchNorm(cout)
-        self.conv1 = Conv3d(cout, cout, 3, padding=1, bias=False)
-        self.norm1 = BatchNorm(cout)
+    def __init__(self, num_groups: int, features: int):
+        super().__init__(min(num_groups, features), features, eps=1e-6)
 
     def forward(self, x):
-        x = F.relu(self.norm0(self.conv0(x)))
-        return F.relu(self.norm1(self.conv1(x)))
+        return super().forward(x.float()).to(x.dtype)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"relu": F.relu, "silu": F.silu, "gelu": _gelu}
+NORMS = ("batch", "group", "none")
+
+
+class ConvBlock(nn.Module):
+    """(Conv3x3x3 -> norm -> activation) twice."""
+
+    def __init__(self, cin: int, cout: int, norm: str = "batch",
+                 num_groups: int = 8, activation: str = "relu"):
+        super().__init__()
+        if norm not in NORMS or activation not in ACTIVATIONS:
+            raise ValueError(f"unknown norm {norm!r} or activation "
+                             f"{activation!r}: the U-Net takes norm in "
+                             f"{NORMS}, activation in {tuple(ACTIVATIONS)}")
+        self.act = ACTIVATIONS[activation]
+        for i, c in enumerate((cin, cout)):
+            setattr(self, f"conv{i}", Conv3d(c, cout, 3, padding=1,
+                                             bias=norm == "none"))
+            if norm == "batch":
+                setattr(self, f"norm{i}", BatchNorm(cout))
+            elif norm == "group":
+                setattr(self, f"norm{i}", GroupNorm(num_groups, cout))
+            else:
+                setattr(self, f"norm{i}", nn.Identity())
+
+    def forward(self, x):
+        x = self.act(self.norm0(self.conv0(x)))
+        return self.act(self.norm1(self.conv1(x)))
 
 
 def head_logits(conv: Conv3d, t: torch.Tensor) -> torch.Tensor:
@@ -165,12 +201,13 @@ class Down(nn.Module):
 
 
 class Up(nn.Module):
-    """Upsample x2 -> k=2 conv -> concat skip -> ConvBlock."""
+    """Upsample x2 -> k=2 conv -> concat skip -> ConvBlock (``block_kw``:
+    its norm, num_groups and activation)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, **block_kw):
         super().__init__()
         self.up_conv = Conv3d(cin, cout, 2)
-        self.block = ConvBlock(2 * cout, cout)
+        self.block = ConvBlock(2 * cout, cout, **block_kw)
 
     def up(self, x):
         """The k=2 conv of the nearest-x2 upsampled ``x``."""

@@ -27,12 +27,19 @@ from tpuseg_torch.models.unet3d import UNet3D
 from tpuseg_torch.ops.convtrain import conv3x3
 
 
+def fused_train_supported(config) -> bool:
+    """The flagship family the fused train apply covers: batch norm, ReLU,
+    features[0] = head_features = 32. The kernel takes every batch and
+    patch shape (the JAX package's lane-packing guard is not ported)."""
+    return (config.norm == "batch" and config.activation == "relu"
+            and config.features[0] == 32 and config.head_features == 32)
+
+
 def make_fused_train_apply(model: UNet3D):
-    """Build ``apply_fn(x)`` for a U-Net of the flagship family (batch norm,
-    ReLU, features[0] = head_features = 32); raises ValueError otherwise."""
+    """Build ``apply_fn(x)`` for a U-Net of the flagship family
+    (:func:`fused_train_supported`); raises ValueError otherwise."""
     cfg = model.config
-    if not (cfg.norm == "batch" and cfg.activation == "relu"
-            and cfg.features[0] == 32 and cfg.head_features == 32):
+    if not fused_train_supported(cfg):
         raise ValueError(f"fused train apply requires the flagship family; "
                          f"got {cfg}")
     dtype = model.dtype

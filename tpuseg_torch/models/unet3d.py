@@ -8,6 +8,9 @@ BatchNorm (batch statistics, running statistics updated in place) and
 ``model.eval()`` eval-mode BatchNorm, on the same parameters and buffers
 (``models/blocks.BatchNorm``); ``models/fused_train.py`` runs the same
 modules with the full-resolution convs on the K6 kernel.
+``ModelConfig.norm`` ("batch", "group", "none") and ``activation`` ("relu",
+"silu", "gelu") select the ConvBlocks' variant (``models/blocks.py``); the
+fused applies take the batch-norm/ReLU family alone.
 """
 
 from __future__ import annotations
@@ -26,22 +29,20 @@ from tpuseg_torch.models.blocks import BatchNorm, Conv3d, ConvBlock, Down, Up
 class UNet3D(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig()):
         super().__init__()
-        if config.norm != "batch" or config.activation != "relu":
-            raise NotImplementedError(
-                f"norm={config.norm!r}, activation={config.activation!r}: "
-                "the port has the default batch-norm/ReLU U-Net only; see "
-                "ROADMAP.md")
         self.config = config
         self.dtype = resolve(config.compute_dtype)
+        kw = dict(norm=config.norm, num_groups=config.num_groups,
+                  activation=config.activation)
         f = config.features
         for i in range(len(f) - 1):
             cin = config.in_channels if i == 0 else f[i]
-            setattr(self, f"enc{i}", ConvBlock(cin, f[i]))
+            setattr(self, f"enc{i}", ConvBlock(cin, f[i], **kw))
             setattr(self, f"down{i}", Down(f[i], f[i + 1]))
-        self.bottleneck = ConvBlock(f[-1], f[-1])
+        self.bottleneck = ConvBlock(
+            f[-1] if len(f) > 1 else config.in_channels, f[-1], **kw)
         for i in reversed(range(len(f) - 1)):
-            setattr(self, f"up{i}", Up(f[i + 1], f[i]))
-        self.head_trunk = ConvBlock(f[0], config.head_features)
+            setattr(self, f"up{i}", Up(f[i + 1], f[i], **kw))
+        self.head_trunk = ConvBlock(f[0], config.head_features, **kw)
         self.fg_head = Conv3d(config.head_features, 1, 1)
         self.peak_head = Conv3d(config.head_features, 1, 1)
 

@@ -1,6 +1,6 @@
 """Ops of the port: peak NMS (with the K5 CUDA kernel, ``ops/nms.py``),
 watershed (with the K1-K3 kernels; see ``ops/watershed.py``), saddle merge,
-connected components, size filter, compact relabel, the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
+connected components, instance sizes and the size filter, compact relabel, the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies share the weight
 layout of ``ops/conv_mma.py``."""
 
@@ -10,16 +10,18 @@ from tpuseg_torch.ops.convtrain import conv3x3, conv3x3_plain, conv3x3_raw
 from tpuseg_torch.ops.components import (connected_components,
                                          label_components,
                                          labels_are_connected)
-from tpuseg_torch.ops.filter import size_filter_and_compact
+from tpuseg_torch.ops.filter import (label_sizes, max_seed_count, size_filter,
+                                     size_filter_and_compact)
 from tpuseg_torch.ops.merge import (apply_merge_table, saddle_merge,
                                     saddle_merge_edges, saddle_merge_table)
 from tpuseg_torch.ops.nms import fused_peak_nms
-from tpuseg_torch.ops.peaks import peak_nms, radius3
+from tpuseg_torch.ops.peaks import peak_nms, radius3, seed_labels_from_peaks
 from tpuseg_torch.ops.relabel import compact_relabel
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve, flood_pass,
                                       flood_resolve)
 from tpuseg_torch.ops.seed import seed_chase_pass
-from tpuseg_torch.ops.watershed import (flood_truncation_count,
+from tpuseg_torch.ops.watershed import (ascent_labels,
+                                        flood_truncation_count,
                                         steepest_dir_codes, watershed)
 
 #: the wrappers that launch the hand-written kernels, each with a
@@ -28,12 +30,13 @@ KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms)
 
 __all__ = [
-    "KERNEL_WRAPPERS", "apply_merge_table", "chase_pass", "chase_resolve",
-    "compact_relabel", "connected_components", "conv3x3", "conv3x3_plain",
-    "conv3x3_raw", "flood_pass", "flood_resolve", "flood_truncation_count",
-    "fold_bn_affine", "fused_convblock", "fused_convblock_plain",
-    "fused_peak_nms", "label_components", "labels_are_connected",
-    "peak_nms", "radius3", "saddle_merge", "saddle_merge_edges",
-    "saddle_merge_table", "seed_chase_pass", "size_filter_and_compact",
-    "steepest_dir_codes", "watershed",
+    "KERNEL_WRAPPERS", "apply_merge_table", "ascent_labels", "chase_pass",
+    "chase_resolve", "compact_relabel", "connected_components", "conv3x3",
+    "conv3x3_plain", "conv3x3_raw", "flood_pass", "flood_resolve",
+    "flood_truncation_count", "fold_bn_affine", "fused_convblock",
+    "fused_convblock_plain", "fused_peak_nms", "label_components",
+    "label_sizes", "labels_are_connected", "max_seed_count", "peak_nms",
+    "radius3", "saddle_merge", "saddle_merge_edges", "saddle_merge_table",
+    "seed_chase_pass", "seed_labels_from_peaks", "size_filter",
+    "size_filter_and_compact", "steepest_dir_codes", "watershed",
 ]

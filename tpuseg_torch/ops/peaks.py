@@ -90,3 +90,22 @@ def peak_nms(peak_prob: torch.Tensor, threshold: float, radius=2) -> torch.Tenso
     cand_idx = torch.where(cand, linear_index(peak.shape, peak.device), -1)
     mi = maxpool_same(cand_idx, radius, -1)
     return cand & (cand_idx == mi)
+
+
+def seed_labels_from_peaks(peak_prob: torch.Tensor, threshold: float,
+                           radius=2, nms_impl: str = "xla") -> torch.Tensor:
+    """int32 label volume: linear index + 1 at each NMS seed, 0 elsewhere
+    (globally unique: the labels are voxel coordinates). The seeds are
+    :func:`peak_nms`'s, or with ``nms_impl="pallas"`` those of the peak-NMS
+    kernel's wrapper (``ops/nms.fused_peak_nms``: K5 on a CUDA tensor, its
+    twin on a CPU one), as in ``ops.watershed.watershed``."""
+    if nms_impl == "pallas":
+        from tpuseg_torch.ops.nms import fused_peak_nms
+
+        seeds = fused_peak_nms(peak_prob, threshold, radius)
+    elif nms_impl == "xla":
+        seeds = peak_nms(peak_prob, threshold, radius)
+    else:
+        raise ValueError(f"unknown nms_impl {nms_impl!r}")
+    idx = linear_index(peak_prob.shape, peak_prob.device)
+    return torch.where(seeds, idx + 1, 0).to(torch.int32)

@@ -19,22 +19,33 @@ basin-root linear index + 1.
   ``ops.peaks.peak_nms`` under ``nms_impl="xla"``, K5 under ``"pallas"``)
   flooded over the foreground by K3, with no ascent.
 
-Not ported yet (``NotImplementedError``; see ROADMAP.md):
-``label_space="dense"`` and the XLA pointer-jump resolve
-(``resolve_impl="xla"``, whose ``ascent_rounds`` cap has other semantics).
+``resolve_impl="xla"`` is the JAX package's XLA composition, its default
+off the TPU, as plain tensor code on any device: the seeds from the plain
+``peak_nms`` (or K5 under ``nms_impl="pallas"``), steepest-ascent parents
+resolved by exactly ``ascent_rounds`` rounds of pointer jumping
+(:func:`ascent_labels`, so a chain longer than ``2**ascent_rounds`` stops
+short at a non-root, whose basin is then dropped and flooded), and the
+plain flood (``ops/resolve.flood_resolve_plain``, ``flood_labels``'s
+semantics).
+
+Not ported (``NotImplementedError``): ``label_space="dense"``, a TPU
+workaround (see ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from tpuseg_torch.ops.neighbors import NEIGHBORS_6, linear_index, shift
 
 
-def steepest_dir_codes(potential, mask, self_sticky=None):
-    """Direction code per voxel: 0 = self/root, 1..6 = NEIGHBORS_6 order —
-    the argmax over {self} U 6 neighbours of (potential, linear index), with
-    neighbours outside ``mask`` at -inf; ``self_sticky`` voxels keep 0."""
+def _steepest(potential, mask):
+    """``(idx, best_idx, best_code)``: each voxel's linear index and the
+    argmax over {self} U 6 neighbours of (potential, linear index), with
+    neighbours outside ``mask`` at -inf, as an index and as a code (0 =
+    self, c + 1 = NEIGHBORS_6[c])."""
     potential = torch.where(mask, potential.float(), float("-inf"))
     idx = linear_index(potential.shape, potential.device)
     best_pot, best_idx = potential, idx
@@ -47,10 +58,51 @@ def steepest_dir_codes(potential, mask, self_sticky=None):
         best_pot = torch.where(better, npot, best_pot)
         best_idx = torch.where(better, nidx, best_idx)
         best_code = torch.where(better, c + 1, best_code)
+    return idx, best_idx, best_code
+
+
+def steepest_dir_codes(potential, mask, self_sticky=None):
+    """Direction code per voxel: 0 = self/root, 1..6 = NEIGHBORS_6 order —
+    the steepest (potential, linear index) ascent step; ``self_sticky``
+    voxels keep 0."""
+    _, _, best_code = _steepest(potential, mask)
     code = torch.where(mask, best_code, 0)
     if self_sticky is not None:
         code = torch.where(self_sticky & mask, 0, code)
     return code.to(torch.int32)
+
+
+def _steepest_parent(potential, mask, self_sticky=None):
+    """Parent linear index per voxel: the steepest ascent step's target,
+    the voxel itself off ``mask`` and at ``self_sticky`` voxels."""
+    idx, best_idx, _ = _steepest(potential, mask)
+    parent = torch.where(mask, best_idx, idx)
+    if self_sticky is not None:
+        parent = torch.where(self_sticky & mask, idx, parent)
+    return parent
+
+
+def _pointer_jump(parent_flat: torch.Tensor, rounds: int) -> torch.Tensor:
+    """``rounds`` rounds of ``p = p[p]``: each voxel 2**rounds steps up its
+    chain (or at the chain's root)."""
+    p = parent_flat.to(torch.int64)
+    for _ in range(rounds):
+        p = p[p]
+    return p.to(parent_flat.dtype)
+
+
+def ascent_labels(potential, fg_mask, seed_mask=None, rounds=None):
+    """Watershed by steepest ascent: int32 labels = the voxel reached by
+    ``rounds`` pointer-jump rounds up the ascent chain, as linear index +
+    1, on the foreground; 0 off it. ``seed_mask`` voxels are forced roots.
+    ``rounds=None`` takes ceil(log2(N)), enough for any chain; fewer rounds
+    leave chains longer than ``2**rounds`` at a voxel short of their
+    root."""
+    parent = _steepest_parent(potential, fg_mask, self_sticky=seed_mask)
+    if rounds is None:
+        rounds = max(1, math.ceil(math.log2(max(potential.numel(), 2))))
+    root = _pointer_jump(parent.reshape(-1), rounds).reshape(parent.shape)
+    return torch.where(fg_mask, root + 1, 0).to(torch.int32)
 
 
 def flood_truncation_count(labels, fg_mask) -> torch.Tensor:
@@ -67,14 +119,18 @@ def flood_truncation_count(labels, fg_mask) -> torch.Tensor:
 def watershed(fg_prob, peak_prob, peak_threshold: float = 0.5,
               fg_threshold: float = 0.5, peak_radius=2,
               flood_iters: int = 96, method: str = "ascent",
-              nms_impl: str = "xla", resolve_impl: str = "auto",
-              label_space: str = "index", plain: bool = False):
+              ascent_rounds: int | None = None, nms_impl: str = "xla",
+              resolve_impl: str = "auto", label_space: str = "index",
+              plain: bool = False):
     """Peak-NMS seeds -> steepest-ascent basins resolved by the chase ->
     unseeded basins dropped and flooded from the seeded ones
     (``method="ascent"``), or the seeds flooded over the foreground
     (``method="flood"``); ``nms_impl`` selects where the seeds come from
     (module docstring). Returns int32 root-index labels
     (``ops.filter.size_filter_and_compact`` numbers them 1..K).
+    ``resolve_impl``: "auto" and "pallas" run the kernel composition, "xla"
+    the plain pointer jump of ``ascent_rounds`` rounds (module docstring);
+    ``ascent_rounds`` is read by "xla" alone.
 
     ``plain=True`` runs the plain twins on whatever device the maps are on:
     the card's check of the kernels (``chip_smoke.py``)."""
@@ -90,12 +146,10 @@ def watershed(fg_prob, peak_prob, peak_threshold: float = 0.5,
         raise ValueError(f"unknown nms_impl {nms_impl!r}")
     if label_space != "index":
         raise NotImplementedError(
-            f"watershed(label_space={label_space!r}) is not ported yet (only "
-            "'index'); see ROADMAP.md")
-    if resolve_impl not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"watershed(resolve_impl={resolve_impl!r}) is not ported yet: the "
-            "port runs the kernel path of 'auto'/'pallas'; see ROADMAP.md")
+            f"watershed(label_space={label_space!r}) is not ported (a TPU "
+            "workaround; only 'index'); see ROADMAP.md")
+    if resolve_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown resolve_impl {resolve_impl!r}")
     if fg_prob.numel() >= 2 ** 31:
         raise ValueError(f"volume {tuple(fg_prob.shape)} too large: labels "
                          "are int32 linear index + 1")
@@ -107,6 +161,20 @@ def watershed(fg_prob, peak_prob, peak_threshold: float = 0.5,
 
     fg_mask = fg_prob >= fg_threshold
     radius = radius3(peak_radius)
+    if resolve_impl == "xla":
+        seeds = nms(peak_prob, peak_threshold, radius) & fg_mask
+        if method == "flood":
+            idx = linear_index(fg_prob.shape, fg_prob.device)
+            return flood_resolve_plain(torch.where(seeds, idx + 1, 0),
+                                       fg_mask, fg_prob, flood_iters)
+        labels = ascent_labels(peak_prob, fg_mask, seed_mask=seeds,
+                               rounds=ascent_rounds)
+        # drop basins whose root (or where the jumps stopped) is no seed;
+        # the flood absorbs them into the seeded ones
+        root_is_seed = seeds.reshape(-1)[(labels - 1).clamp(min=0).reshape(
+            -1).to(torch.int64)].reshape(labels.shape)
+        labels = torch.where((labels > 0) & root_is_seed, labels, 0)
+        return flood_resolve_plain(labels, fg_mask, fg_prob, flood_iters)
     if method == "ascent" and nms_impl == "xla":
         dirs, v = seed(peak_prob, fg_prob, peak_threshold, fg_threshold,
                        radius, h0=8)

@@ -1,6 +1,8 @@
 """Structured metrics logging (port of ``tpuseg/utils/logging.py``): one
-JSONL record per logged step (step, wall time, losses, grad norm, Mvox/s).
-The JAX package's optional TensorBoard writer is not ported."""
+JSONL record per logged step (step, wall time, losses, grad norm, Mvox/s),
+and optionally the same scalars as TensorBoard events
+(``torch.utils.tensorboard``; without the tensorboard package the writer is
+off, as in the JAX package)."""
 
 from __future__ import annotations
 
@@ -12,13 +14,22 @@ from typing import Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, path: Optional[str] = None, echo: bool = True):
+    def __init__(self, path: Optional[str] = None, echo: bool = True,
+                 tensorboard_dir: Optional[str] = None):
         self.path = path
         self.echo = echo
         self._fh = None
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._fh = open(path, "a", buffering=1)
+        self._tb = None
+        if tensorboard_dir:
+            try:  # optional: an opt-in dependency
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(tensorboard_dir)
+            except ImportError:
+                self._tb = None
         self._t0 = time.perf_counter()
 
     def log(self, step: int, metrics: Dict[str, float], **extra) -> None:
@@ -31,6 +42,9 @@ class MetricsLogger:
         line = json.dumps(rec)
         if self._fh:
             self._fh.write(line + "\n")
+        if self._tb is not None:
+            for k, val in metrics.items():
+                self._tb.add_scalar(k, float(val), int(step))
         if self.echo:
             print(line, file=sys.stderr)
 
@@ -38,3 +52,6 @@ class MetricsLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
