@@ -6,8 +6,9 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the card: name, count, power limit (CUDA missing -> error);
 2. build the hand-written kernels (K1 seed, K2 chase, K3 flood, K4 fused
-   eval ConvBlock, K5 peak NMS, K6 training conv) from ``tpuseg_torch/csrc``
-   and print nvcc's per-kernel register report;
+   eval ConvBlock, K5 peak NMS, K6 training conv, and the histograms H1-H3
+   of one-volume inference) from ``tpuseg_torch/csrc`` and print nvcc's
+   per-kernel register report;
 3. each kernel against its plain PyTorch twin on the card, elementwise, at
    the main-path shape 96x512x512 (analytic maps of a 600-instance
    synthetic stack) and at a ragged shape; at both shapes also single
@@ -28,7 +29,9 @@ Phases, in order; any failure raises and exits non-zero:
    a 96x512x512 volume with seeded weights of the full default U-Net
    (32/64/128/256, head 32, bf16) under the default InferConfig; every
    kernel's launch counter must be above 0 after the run, K1's by the tile
-   pass; then, warm, the stage times and each stage's peak device memory,
+   pass, and H1-H3 (normalization and size filter) too, with the chase's
+   and flood's passes run beside those enqueued (the loops' gates); then,
+   warm, the stage times and each stage's peak device memory,
    and its post-processing through the twins on the same
    logits: labels equal elementwise; then K1-K3 against their twins on
    those seeded-weights probabilities (the main path's load: tens of chase
@@ -181,15 +184,43 @@ Phases, in order; any failure raises and exits non-zero:
     ``instance_metrics`` + ``voxel_metrics``, and the card's F1 helpers
     (which phases 5, 9 and 13-17 score with) equal to both; (f)
     ``measure_rf_radius`` of the trained net on a 128^3 probe, in bf16 and
-    with its weights in float32.
+    with its weights in float32;
+18. (run after phase 9, with its checkpoint, and after phase 17, with its
+    fixtures, where it ran) one-volume inference as one device program:
+    (a) H1 (``ops/hist.bin_counts``) against its twin elementwise under
+    both bin rules (the normalization's on the 96x512x512 stack, whole and
+    sampled 1:4; the calibration's on its seeded-weights fg map) and on a
+    stack of 2**25 voxels, H2 (``percentiles``) bit-equal to its numpy twin
+    on each of those counts (bins above 2**24 among them), H3
+    (``label_counts``) equal to ``torch.bincount`` on the seeded-weights
+    watershed's index labels, and each one's time beside its twin's, the
+    library call's and its bound; (b) K1 and K5 with their thresholds as
+    0-d device tensors equal to the same host floats and to the twins, on
+    the seeded-weights maps and on touch60_snr20's calibrated maps; (c) the
+    chase and the flood gated on the device equal to the twins' host-read
+    loops with as many passes run and the same gates, on the seeded
+    weights (23 chase passes) and at the 128-pass cap (a c5 fixture under
+    calibrated c3 where one reaches it, else a constant peak map whose
+    chains climb 1117 hops); (d) ``make_infer_fn`` on the stack (plain and
+    fused apply with seeded weights, calibrated c3 with phase 9's) and
+    ``make_batched_infer_fn`` on the five c5 fixtures, each call inside
+    ``torch.cuda.set_sync_debug_mode("error")`` after one warm call: no
+    PyTorch call may wait for the device, and the labels equal the twins'
+    post-processing of the same sweep run outside the mode (the fused
+    sweep's own twin rounds bf16 otherwise: phase 12); (e) warm times: the
+    batched call against five single calls (host enqueue and wall), the
+    main-path calls of (d), and the seeded-weights resolves gated on the
+    device against the same pass kernels in a host-read loop, with the
+    chase's idle pass (128 idle passes against 2).
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-17 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-18 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
-processes of phase 16 and on the touching fixtures of phase 17, and its
-bound: the
+processes of phase 16 and on the touching fixtures of phase 17, K2's and
+K3's passes run on the main path beside their launches, and its bound:
+the
 larger of its bytes over the card's memory rate and its operations over
 the card's peak rate, from this run's shapes) and
 nvidia-smi's ``name, power.limit``; the last line is
@@ -239,7 +270,18 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
                         "tpuseg/ops/pallas_convblock.py:382"),
     "fused_peak_nms": ("tpuseg_torch/csrc/nms.cu",
                        "tpuseg/ops/pallas_nms.py:133"),
+    # H1-H3 have no Pallas counterpart: the reference's XLA code they stand
+    # for (its histogram, its float32 CDF and search, its label histogram)
+    "bin_counts": ("tpuseg_torch/csrc/hist.cu",
+                   "tpuseg/data/normalize.py:55"),
+    "percentiles": ("tpuseg_torch/csrc/hist.cu",
+                    "tpuseg/data/normalize.py:59"),
+    "label_counts": ("tpuseg_torch/csrc/hist.cu",
+                     "tpuseg/ops/filter.py:130"),
 }
+# the histogram kernels (ops/hist.py), launched by every one-volume call:
+# H1 and H2 normalize, H3 counts the labels for the size filter
+HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory rate, bf16 tensor-core rate, and the float32 rate outside the
 # tensor cores, which also stands in for compare/select work.
@@ -265,8 +307,9 @@ EARLIER = {
                   "(10 passes)",
 }
 # the resolve kernels by their names in a profile: the launches one pass of
-# 8 steps may make
-PASS_LAUNCHES = {"chase_walk_kernel": 1, "flood_march_kernel": 2}
+# 8 steps may make (K1's own chase steps are one chase_walk_kernel)
+PASS_LAUNCHES = {"chase_pass_kernel": 1, "flood_march_kernel": 2}
+WALK_KERNEL = "chase_walk_kernel"
 # K1's and K5's kernels by name: the tile pass (one launch a call) and the
 # chain's, which a call at radius 2 must not launch
 TILE_KERNEL = "nms_tile_kernel"
@@ -426,8 +469,8 @@ def check_launches_per_pass(fg, pk, reps: int = 5) -> None:
     on one pair of maps, from one ``torch.profiler`` trace over K1 and K5
     once and ``reps`` passes of each: K1 is one tile-pass launch and one
     walk launch, K5 one tile-pass launch, and neither launches a kernel of
-    the chain; the chase walks in one launch (so ``1 + reps`` in all), the
-    flood takes at most ``PASS_LAUNCHES`` of its own a pass. Run after
+    the chain; a chase pass is one launch of its own, the flood takes at
+    most ``PASS_LAUNCHES`` of its own a pass. Run after
     everything that is timed on the host's clock:
     once the profiler has traced, every later launch of the process costs
     the host more."""
@@ -454,28 +497,30 @@ def check_launches_per_pass(fg, pk, reps: int = 5) -> None:
 
     # a trace that lost events counts too few launches, never too many
     counts = kernel_launch_counts(calls, complete=lambda c: (
-        named(c, TILE_KERNEL) >= 2 and named(c, "chase_walk_kernel") >= 1 + reps
+        named(c, TILE_KERNEL) >= 2 and named(c, WALK_KERNEL) >= 1
+        and named(c, "chase_pass_kernel") >= reps
         and named(c, "flood_march_kernel") >= reps))
     if not counts:
         print("[12] kernel launches: not measured (no device trace)")
         return
-    walks, floods = (named(counts, name) for name in PASS_LAUNCHES)
+    chases, floods = (named(counts, name) for name in PASS_LAUNCHES)
+    walks = named(counts, WALK_KERNEL)
     most = PASS_LAUNCHES["flood_march_kernel"]
     tiles = named(counts, TILE_KERNEL)
     chain = {key: n for key, n in counts.items()
              if any(name in key for name in CHAIN_KERNELS)}
-    if (walks != 1 + reps or not reps <= floods <= most * reps or tiles != 2
-            or chain):
+    if (walks != 1 or chases != reps or not reps <= floods <= most * reps
+            or tiles != 2 or chain):
         raise AssertionError(
             f"K1, K5 and {reps} passes of 8 steps of K2 and K3 launched "
             f"{TILE_KERNEL} {tiles} times (expected 2: one for K1, one for "
             f"K5), the chain's kernels {chain} (expected none), "
-            f"chase_walk_kernel {walks} times (expected {1 + reps}) and "
-            f"flood_march_kernel {floods} times (expected {reps}..."
-            f"{most * reps}): {counts}")
+            f"{WALK_KERNEL} {walks} times (expected 1), chase_pass_kernel "
+            f"{chases} times (expected {reps}) and flood_march_kernel "
+            f"{floods} times (expected {reps}...{most * reps}): {counts}")
     print(f"[12] kernel launches: K1 one {TILE_KERNEL} and one "
-          f"chase_walk_kernel, K5 one {TILE_KERNEL}, none of the chain's; "
-          f"{reps} chase passes of 8 steps {walks - 1} x chase_walk_kernel "
+          f"{WALK_KERNEL}, K5 one {TILE_KERNEL}, none of the chain's; "
+          f"{reps} chase passes of 8 steps {chases} x chase_pass_kernel "
           f"(one each), {reps} flood passes of 8 steps {floods} x "
           f"flood_march_kernel (at most {most} each)")
 
@@ -484,8 +529,10 @@ def compare_kernels(fg, pk, timed: bool):
     """K1-K3 against their twins on one pair of maps; returns per kernel a
     record with max_abs_err and, if timed: for K1 ms, plain_ms and the bound
     of the call; for K2 and K3 those of one pass of 8 steps from the state
-    the resolve starts in, and resolve_ms, resolve_plain_ms, passes and
-    resolve_bound_ms of the whole ``chase_resolve`` / ``flood_resolve``.
+    the resolve starts in, and resolve_ms, resolve_plain_ms, passes (run:
+    read from the loop's gates, equal to the twin's host loop's),
+    passes_enqueued and resolve_bound_ms of the whole ``chase_resolve`` /
+    ``flood_resolve``.
 
     Bounds, per voxel: K1 reads two float32 maps and writes two int32
     volumes (16 B) for about 60 compare/select operations (two separable
@@ -498,10 +545,13 @@ def compare_kernels(fg, pk, timed: bool):
     from tpuseg_torch.ops.resolve import (chase_pass, chase_pass_plain,
                                           chase_resolve, chase_resolve_plain,
                                           flood_pass, flood_pass_plain,
-                                          flood_resolve, flood_resolve_plain)
+                                          flood_resolve, flood_resolve_plain,
+                                          passes_run)
     from tpuseg_torch.ops.seed import seed_chase_pass, seed_chase_pass_plain
 
     thr, radius, flood_iters = 0.5, (2, 2, 2), 96
+    loops = {"chase_pass": (chase_resolve, chase_resolve_plain),
+             "flood_pass": (flood_resolve, flood_resolve_plain)}
     fgm = fg >= thr
     runs = {
         "seed_chase_pass": (
@@ -530,8 +580,18 @@ def compare_kernels(fg, pk, timed: bool):
     out = {}
     for name, (wrapper, vox_bytes, vox_ops, kern, plain) in runs.items():
         before = wrapper.launches, getattr(wrapper, "tile_launches", None)
-        got, want = kern(), plain()
-        passes = wrapper.launches - before[0]
+        got = kern()
+        want = plain()
+        passes = launched = wrapper.launches - before[0]
+        if name in loops:
+            # enqueued passes gate themselves off on the device: the gates
+            # say how many ran, and the twin's host loop ran as many
+            passes, ran_plain = (passes_run(f.last_gates)
+                                 for f in loops[name])
+            if passes != ran_plain:
+                raise AssertionError(
+                    f"{name}: the device loop ran {passes} passes, the "
+                    f"twin's host loop {ran_plain}")
         if before[1] is not None and wrapper.tile_launches - before[1] != 1:
             raise AssertionError(f"{name}: radius {radius} did not take the "
                                  "tile pass")
@@ -554,7 +614,8 @@ def compare_kernels(fg, pk, timed: bool):
             out[name].update(
                 ms=cuda_ms(one_pass[name][0], 10),
                 plain_ms=cuda_ms(one_pass[name][1], 2), library_ms=None,
-                **call_bound(1), passes=passes, resolve_ms=cuda_ms(kern, 5),
+                **call_bound(1), passes=passes, passes_enqueued=launched,
+                resolve_ms=cuda_ms(kern, 5),
                 resolve_plain_ms=cuda_ms(plain, 2),
                 resolve_bound_ms=call_bound(passes)["bound_ms"])
         else:
@@ -580,8 +641,9 @@ def print_kernel_times(phase: str, load: str, recs: dict) -> None:
                 f"{r['bound_by']}")
         if "resolve_ms" in r:
             line += (f" (one pass of 8); resolve {r['resolve_ms']:.3f} ms in "
-                     f"{r['passes']} passes, twin {r['resolve_plain_ms']:.3f} "
-                     f"ms, bound {r['resolve_bound_ms']:.3f} ms")
+                     f"{r['passes']} passes run of {r['passes_enqueued']} "
+                     f"enqueued, twin {r['resolve_plain_ms']:.3f} ms, bound "
+                     f"{r['resolve_bound_ms']:.3f} ms")
         if "chain_ms" in r:
             line += (f" (the tile pass and the walk); the chain in this run "
                      f"{r['chain_ms']:.3f} ms")
@@ -897,19 +959,23 @@ def phase_main_path(image: np.ndarray, tmp: str):
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    status = cli_infer.main(["--checkpoint", ckpt, "--input", vol_path,
-                             "--output", out_path, "--report-convergence"])
+    with PassTally() as tally:
+        status = cli_infer.main(["--checkpoint", ckpt, "--input", vol_path,
+                                 "--output", out_path,
+                                 "--report-convergence"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
     tiles = _tile_launches()
+    ran = dict(zip(("chase_pass", "flood_pass"), tally.passes()))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[4] cli.infer exit status {status} "
           f"({'flood truncated' if status == 4 else 'converged'}); "
-          f"kernel launches {launches}, by the tile pass {tiles}")
+          f"kernel launches {launches}, by the tile pass {tiles}; passes "
+          f"run of those enqueued: {ran}")
     if status not in (0, 4):
         raise AssertionError(f"cli.infer returned {status}")
-    missing = [k for k in INFER_KERNELS if launches[k] == 0]
+    missing = [k for k in INFER_KERNELS + HIST_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     if tiles["seed_chase_pass"] != launches["seed_chase_pass"]:
@@ -926,7 +992,7 @@ def phase_main_path(image: np.ndarray, tmp: str):
     print(f"[4] main path: {n_inst} instances; wall {wall:.3f} s incl. "
           f"first-call setup ({vox / wall / 1e6:.2f} Mvox/s); peak device "
           f"memory {peak_gb:.2f} GB")
-    return launches, tiles, ckpt, cfg, labels
+    return launches, tiles, ran, ckpt, cfg, labels
 
 
 def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
@@ -1376,22 +1442,58 @@ def f1_iou50_on_card(pred: np.ndarray, gt: np.ndarray) -> dict:
             "tp": tp, "n_pred": n_pred, "n_gt": n_gt}
 
 
+class PassTally:
+    """The K2 and K3 passes that ran inside the ``with`` (the loops enqueue
+    more passes than run): ``ops.resolve``'s two loops are wrapped and each
+    call's gates kept. A loop sets ``.last_gates`` on the name it is called
+    by, here the wrapper. ``passes()`` reads them on the host, after the
+    ``with``: (chase, flood) passes run in all."""
+
+    NAMES = ("chase_resolve", "flood_resolve")
+
+    def __enter__(self):
+        from tpuseg_torch.ops import resolve
+
+        self.module, self.gates = resolve, []
+        self.orig = {n: getattr(resolve, n) for n in self.NAMES}
+        for slot, name in enumerate(self.NAMES):
+            setattr(resolve, name, self._counted(slot, name))
+        return self
+
+    def _counted(self, slot, name):
+        def counted(*args, **kwargs):
+            out = self.orig[name](*args, **kwargs)
+            self.gates.append((slot, counted.last_gates))
+            return out
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.module, name, fn)
+
+    def passes(self) -> tuple:
+        from tpuseg_torch.ops.resolve import passes_run
+
+        ran = [0, 0]
+        for slot, gates in self.gates:
+            ran[slot] += passes_run(gates)
+        return tuple(ran)
+
+
 class ChunkPasses:
     """Chase and flood passes per chunk of a stream: the streaming module's
     watershed is wrapped for the time of the ``with``, and each call's K2
-    and K3 launches are kept."""
+    and K3 passes that ran are kept (``PassTally``)."""
 
     def __enter__(self):
         from tpuseg_torch.infer import streaming
-        from tpuseg_torch.ops import chase_pass, flood_pass
 
         self.module, self.orig, self.passes = streaming, streaming.watershed, []
 
         def counted(*args, **kwargs):
-            c0, f0 = chase_pass.launches, flood_pass.launches
-            out = self.orig(*args, **kwargs)
-            self.passes.append((chase_pass.launches - c0,
-                                flood_pass.launches - f0))
+            with PassTally() as tally:
+                out = self.orig(*args, **kwargs)
+            self.passes.append(tally.passes())
             return out
 
         streaming.watershed = counted
@@ -2738,7 +2840,9 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     phase_mp_train_cli(tmp)
     shard_labels = phase_mp_infer(sv, ckpt_dir, vol_path, ann_path, tmp, acc)
     phase_mp_nccl(ckpt_dir, vol_path, ann_path, tmp, shard_labels, acc)
-    missing = [k for k in KERNELS if not acc.get(k)]
+    # every kernel of a Pallas kernel; of the histograms, H3 counts labels
+    # for the one-volume filter only (the sharded paths compact packed ids)
+    missing = [k for k in KERNELS if k != "label_counts" and not acc.get(k)]
     if missing:
         raise AssertionError(f"[16] the multi-process paths never launched "
                              f"{missing}: {acc}")
@@ -3022,8 +3126,8 @@ def phase_touching_checks(model, fixtures: dict, vols, cfgs: dict,
 def phase_touching(ckpt_dir: str, tmp: str) -> dict:
     """Phase 17: bench.py's c5 fixtures and the evaluation surface on the
     port, with phase 9's checkpoint. Returns the launches of the main-path
-    legs (a), (b), (e) and (g); (c), (d) and (f) run after the count is
-    read."""
+    legs (a), (b), (e) and (g) ((c), (d) and (f) run after the count is
+    read) and the fixtures, which phase 18 takes over."""
     from tpuseg_torch.data import synthesize_touching_volume
 
     t0 = time.perf_counter()
@@ -3053,7 +3157,7 @@ def phase_touching(ckpt_dir: str, tmp: str) -> dict:
     phase_touching_checks(model, fixtures, vols, cfgs, labels, tmp)
     del vols
     torch.cuda.empty_cache()
-    return launches
+    return launches, fixtures
 
 
 
@@ -3432,6 +3536,446 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
             {"fused_peak_nms": k5_tiles})
 
 
+def no_host_reads(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    PyTorch call in it that waits for the device (a copy to the host, an
+    ``.item()``, a ``torch.unique`` or ``torch.bincount`` on the card)
+    raises. The mode is set back in any case."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _probabilities(model, cfg, vol):
+    """The sweep's fg and peak probabilities of ``vol`` under ``cfg``,
+    float32, as the post-processing stage computes them."""
+    from tpuseg_torch.infer import make_infer_stages
+
+    logits = make_infer_stages(model, cfg)[1](vol)
+    return tuple(torch.sigmoid(logits[k]).float()
+                 for k in ("fg_logits", "peak_logits"))
+
+
+def phase_hist_kernels(vol, fg, labels) -> dict:
+    """(a) H1 under both bin rules against its twin, elementwise, on the
+    main stack (normalization: the image; calibration: the seeded-weights
+    fg probabilities) and on a stack of 2**25 voxels (the main stack and
+    its first 32 planes again); H2 bit-equal to its twin (numpy's float32
+    cumsum) on each of those counts; H3 against ``torch.bincount`` on the
+    seeded-weights watershed's index labels. Then each kernel's time at
+    the main path's shapes beside its twin's, the library call's and its
+    bound; returns the records.
+
+    Bounds: H1 must read its sample (4 B a voxel) for ~5 float32
+    operations a voxel (the bin index) and write 4096 int64 counts; H2
+    must read the counts (32 KB) for two operations a bin (its time is a
+    chain of 4096 dependent float32 adds, which no rate bounds); H3 must
+    read the labels and write the (N+1,) int32 table (8 B a voxel) for one
+    operation a voxel. Library calls: ``torch.histc`` for H1 (its bin edges
+    round otherwise: timing only), none for H2, ``torch.bincount`` for H3
+    (int64 counts)."""
+    from tpuseg_torch.ops import hist
+
+    stride = 4                          # data.normalize_sample_stride
+    big = torch.cat([vol, vol[:32]])
+    big_fg = torch.cat([fg, fg[:32]])
+    if big.numel() < 2 ** 25:
+        raise AssertionError(f"the large stack has {big.numel()} voxels")
+    out = {}
+
+    def rows(x):
+        flat = x.reshape(1, -1)
+        lo = flat.min(dim=1).values
+        return flat, lo, torch.clamp(flat.max(dim=1).values - lo, min=1e-12)
+
+    checked = []
+    for tag, x, rule in (("main stack, normalize", vol, "normalize"),
+                         ("main stack sampled 1:4, normalize",
+                          vol[..., ::stride].contiguous(), "normalize"),
+                         ("seeded-weights fg, calibrate", fg, "calibrate"),
+                         ("2^25 stack, normalize", big, "normalize"),
+                         ("2^25 stack fg, calibrate", big_fg, "calibrate")):
+        flat, lo, span = rows(x)
+        if rule == "calibrate":
+            lo, span = torch.zeros_like(lo), torch.ones_like(span)
+        got = hist.bin_counts(flat, lo, span, rule=rule)
+        want = hist.bin_counts_plain(flat, lo, span, rule=rule)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0 or int(got.sum()) != flat.numel():
+            raise AssertionError(f"[18] H1 on {tag}: kernel != twin (max abs "
+                                 f"err {err})")
+        pcts = (1.0, 99.8, 50.0, 99.995)
+        p_got = hist.percentiles(got, flat.numel(), lo, span, pcts)
+        p_want = hist.percentiles_plain(got.cpu(), flat.numel(), lo.cpu(),
+                                        span.cpu(), pcts)
+        if not torch.equal(p_got.cpu(), p_want):
+            raise AssertionError(f"[18] H2 on {tag}: {p_got.tolist()} != twin "
+                                 f"{p_want.tolist()}")
+        checked.append(f"{tag} ({flat.numel()} samples, largest bin "
+                       f"{int(got.max())})")
+    print("[18] (a) H1 == twin elementwise and H2 == twin bitwise on: "
+          + "; ".join(checked))
+
+    counts = hist.label_counts(labels)
+    want = torch.bincount(labels.reshape(-1).long(),
+                          minlength=labels.numel() + 1).to(torch.int32)
+    want[0] = 0
+    if not torch.equal(counts, want):
+        raise AssertionError(f"[18] H3 != torch.bincount on "
+                             f"{int((counts != want).sum())} labels")
+    print(f"[18] (a) H3 == torch.bincount on the seeded-weights index labels "
+          f"({int((counts > 0).sum())} labels, largest "
+          f"{int(counts.max())} voxels)")
+
+    # times at the main path's shapes: H1 on the 1:4 sample, H2 on its
+    # counts, H3 on the index labels; H1's calibration rule beside
+    flat, lo, span = rows(vol[..., ::stride].contiguous())
+    n = flat.numel()
+    lo_f, hi_f = float(lo), float(lo + span)
+    h1 = hist.bin_counts(flat, lo, span)
+    fg_flat = fg.reshape(1, -1)
+    out["bin_counts"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: hist.bin_counts(flat, lo, span), 20),
+        plain_ms=cuda_ms(lambda: hist.bin_counts_plain(flat, lo, span), 5),
+        library_ms=cuda_ms(lambda: torch.histc(flat, 4096, lo_f, hi_f), 20),
+        calibrate_ms=cuda_ms(lambda: hist.bin_counts(fg_flat,
+                                                     rule="calibrate"), 20),
+        calibrate_plain_ms=cuda_ms(lambda: hist.bin_counts_plain(
+            fg_flat, None, None, rule="calibrate"), 5),
+        **bound(4 * n + 8 * 4096, 5 * n, F32_FLOPS))
+    pcts = (1.0, 99.8)
+    out["percentiles"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: hist.percentiles(h1, n, lo, span, pcts), 20),
+        plain_ms=cuda_ms(lambda: hist.percentiles_plain(h1, n, lo, span, pcts),
+                         5),
+        library_ms=None, **bound(8 * 4096 + 8 * 2, 2 * 4096, F32_FLOPS))
+    nl = labels.numel()
+    flat_labels = labels.reshape(-1)
+    out["label_counts"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: hist.label_counts(labels), 20),
+        plain_ms=cuda_ms(lambda: hist.label_counts_plain(labels), 5),
+        library_ms=cuda_ms(lambda: torch.bincount(flat_labels,
+                                                  minlength=nl + 1), 5),
+        **bound(8 * nl + 4, nl, F32_FLOPS))
+    for name, r in out.items():
+        print(f"[18] {name}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.3f}"
+              f" ms, library "
+              + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                 else "none")
+              + f", bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+              + (f"; calibration rule on the fg map {r['calibrate_ms']:.4f} "
+                 f"ms, twin {r['calibrate_plain_ms']:.3f} ms"
+                 if "calibrate_ms" in r else ""))
+    del big, big_fg
+    return out
+
+
+def phase_device_thresholds(maps) -> None:
+    """(b) K1 and K5 with their thresholds as 0-d device tensors == the same
+    thresholds as host floats == the twins, on each ``(name, fg, pk,
+    peak_threshold, fg_threshold, radius)`` of ``maps`` (a tensor threshold
+    is the calibrated one, as the pipeline passes it)."""
+    from tpuseg_torch.ops.nms import fused_peak_nms, fused_peak_nms_plain
+    from tpuseg_torch.ops.seed import seed_chase_pass, seed_chase_pass_plain
+
+    def dev(v):
+        return v if isinstance(v, torch.Tensor) else torch.full(
+            (), v, dtype=torch.float32, device="cuda")
+
+    for name, fg, pk, p_thr, f_thr, radius in maps:
+        host = (float(p_thr), float(f_thr))
+        a = seed_chase_pass(pk, fg, *host, radius)
+        b = seed_chase_pass(pk, fg, dev(p_thr), dev(f_thr), radius)
+        c = seed_chase_pass_plain(pk, fg, *host, radius)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(a, b, c)):
+            raise AssertionError(f"[18] K1 on {name}: device thresholds != "
+                                 "host floats != twin")
+        s_host = fused_peak_nms(pk, host[0], radius)
+        s_dev = fused_peak_nms(pk, dev(p_thr), radius)
+        if not (torch.equal(s_host, s_dev)
+                and torch.equal(s_dev, fused_peak_nms_plain(pk, host[0],
+                                                            radius))):
+            raise AssertionError(f"[18] K5 on {name}: device threshold != "
+                                 "host float != twin")
+        print(f"[18] (b) {name}: K1 and K5 with device thresholds (peak "
+              f"{host[0]:.6g}, fg {host[1]:.6g}, radius {tuple(radius)}) == "
+              f"host floats == twins ({int(s_dev.sum())} seeds)")
+
+
+def _resolve_inputs(fg, pk, p_thr, f_thr, radius):
+    """What the watershed gives K2 and K3: K1's (dirs, v), the mask, and the
+    chase's result."""
+    from tpuseg_torch.ops.resolve import chase_resolve_plain
+    from tpuseg_torch.ops.seed import seed_chase_pass
+
+    fgm = fg >= f_thr
+    dirs, v = seed_chase_pass(pk, fg, p_thr, f_thr, radius)
+    return fgm, dirs, v, chase_resolve_plain(v, dirs, fgm).clamp(min=0)
+
+
+def check_gated_loops(name, fg, fgm, dirs, v, v_res) -> tuple:
+    """(c) The gated ``chase_resolve`` and ``flood_resolve`` == the twins'
+    host-read loops, with as many passes run and the same gates (the card's
+    slots against the counts and flags the loops read). Returns (chase,
+    flood) passes run."""
+    from tpuseg_torch.ops.resolve import (chase_resolve, chase_resolve_plain,
+                                          flood_resolve, flood_resolve_plain,
+                                          passes_run)
+
+    runs = []
+    for what, kern, plain in (
+            ("chase", chase_resolve, chase_resolve_plain),
+            ("flood", flood_resolve, flood_resolve_plain)):
+        args = ((v, dirs, fgm) if what == "chase"
+                else (v_res, fgm, fg, 96))
+        got, want = kern(*args), plain(*args)
+        ran, ran_plain = (passes_run(kern.last_gates),
+                          passes_run(plain.last_gates))
+        gates = kern.last_gates[:plain.last_gates.numel()].cpu()
+        if (not torch.equal(got, want) or ran != ran_plain
+                or not torch.equal(gates, plain.last_gates)):
+            raise AssertionError(
+                f"[18] gated {what} on {name}: {int((got != want).sum())} "
+                f"voxels differ; passes run {ran}, the twin's loop "
+                f"{ran_plain}; gates {gates.tolist()[:8]}..., the twin's "
+                f"{plain.last_gates.tolist()[:8]}...")
+        runs.append(ran)
+    print(f"[18] (c) {name}: gated chase == twin loop in {runs[0]} passes "
+          f"run of 128 enqueued, gated flood == twin loop in {runs[1]} "
+          "passes run of 12 enqueued")
+    return tuple(runs)
+
+
+def time_gated_loops(fgm, dirs, v, v_res, fg, chase_runs: int) -> dict:
+    """(e) The seeded-weights resolves, gated on the device, against the
+    same pass kernels driven by a host-read loop written here (one read of
+    the count or the flag after each pass), and the chase's idle pass:
+    128 passes on an input already resolved (every pass idle, two copy)
+    against 2. CUDA events, which count the device's idle time too."""
+    from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve,
+                                          flood_pass, flood_resolve)
+
+    def chase_host_loop():
+        x = v
+        n = int((fgm & (x == 0)).sum())
+        i = 0
+        while n > 0 and i < 128:
+            x, c = chase_pass(x, dirs, fgm, 8)
+            n = int(c)
+            i += 1
+        return x
+
+    pot = torch.where(fgm, fg.float(), float("-inf"))
+    lab0 = torch.where(fgm, v_res, 0).to(torch.int32)
+
+    def flood_host_loop():
+        x, changed, i = lab0, True, 0
+        while changed and i < 12:
+            x, ch = flood_pass(pot, x, 8)
+            changed = bool(ch)
+            i += 1
+        return x
+
+    if not (torch.equal(chase_host_loop(), chase_resolve(v, dirs, fgm))
+            and torch.equal(flood_host_loop(),
+                            flood_resolve(v_res, fgm, fg, 96))):
+        raise AssertionError("[18] host-read loops != gated loops")
+    done = chase_resolve(v, dirs, fgm)
+    t = {}
+    for turn in range(2):
+        for tag, fn in (
+                ("chase gated", lambda: chase_resolve(v, dirs, fgm)),
+                ("chase host loop", chase_host_loop),
+                ("chase gated, no idle pass",
+                 lambda: chase_resolve(v, dirs, fgm, max_passes=chase_runs)),
+                ("flood gated", lambda: flood_resolve(v_res, fgm, fg, 96)),
+                ("flood host loop", flood_host_loop),
+                ("chase 128 idle", lambda: chase_resolve(done, dirs, fgm)),
+                ("chase 2 idle", lambda: chase_resolve(done, dirs, fgm,
+                                                       max_passes=2))):
+            t.setdefault(tag, []).append(cuda_ms(fn, 5))
+    best = {k: min(x) for k, x in t.items()}
+    idle_us = 1e3 * (best["chase 128 idle"] - best["chase 2 idle"]) / 126
+    extra = best["chase gated"] - best["chase gated, no idle pass"]
+    print("[18] (e) seeded-weights resolves, ms (two turns): "
+          + "; ".join(f"{k} {' / '.join(f'{x:.3f}' for x in v_)}"
+                      for k, v_ in t.items()))
+    print(f"[18] (e) chase: one idle pass {idle_us:.2f} us; the "
+          f"{128 - chase_runs} idle passes of the gated resolve cost "
+          f"{extra:.3f} ms over {chase_runs} passes run alone; the host-read "
+          f"loop {best['chase host loop'] - best['chase gated']:+.3f} ms "
+          f"against the gated resolve")
+    return {"idle_pass_us": idle_us, "idle_passes_ms": extra, **best}
+
+
+def phase_one_program(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
+    """Phase 18: one-volume inference as one device program. Returns the
+    records of H1-H3 (``phase_hist_kernels``) and the times of (e)."""
+    import dataclasses
+
+    from tpuseg_torch.ckpt import load_pth
+    from tpuseg_torch.cli.infer import calibrated
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.data import synthesize_touching_volume
+    from tpuseg_torch.infer import (make_batched_infer_fn, make_infer_fn,
+                                    make_infer_stages)
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.ops import watershed
+    from tpuseg_torch.ops.calibrate import threshold_for_fraction
+    from tpuseg_torch.ops.resolve import chase_resolve, passes_run
+    from tpuseg_torch.utils import hard_sync
+
+    cfg = Config()
+    ckpt = os.path.join(tmp, "seeded18.pth")
+    write_seeded_checkpoint(ckpt, cfg.model)
+    seeded = build_model(cfg.model)
+    seeded.load_state_dict(load_pth(ckpt))
+    seeded.cuda()
+    vol = torch.from_numpy(sv.image).cuda()
+    fg, pk = _probabilities(seeded, cfg, vol)
+    pp = cfg.postproc
+    labels = watershed(fg, pk, peak_threshold=pp.peak_threshold,
+                       fg_threshold=pp.fg_threshold, peak_radius=pp.nms_radius)
+    records = phase_hist_kernels(vol, fg, labels)
+    del labels
+
+    if fixtures is None:
+        fixtures = {name: synthesize_touching_volume(**C5_KW, **kw)
+                    for name, kw in C5_FIXTURES.items()}
+    c3, cfgs = c5_configs(fixtures)
+    model = trained_model(ckpt_dir, c3)
+    vols = torch.stack([torch.from_numpy(tv.image)
+                        for tv in fixtures.values()]).cuda()
+    probs = {}
+    for i, (name, c) in enumerate(cfgs.items()):
+        f, p = _probabilities(model, c, vols[i])
+        thr = threshold_for_fraction(
+            f, c.postproc.fg_target_fraction,
+            sample_stride=c.data.normalize_sample_stride)
+        probs[name] = (f, p, c.postproc.peak_threshold, thr,
+                       tuple(c.postproc.nms_radius))
+    r3 = (2, 2, 2)
+    phase_device_thresholds([
+        ("the seeded-weights maps", fg, pk, pp.peak_threshold,
+         pp.fg_threshold, r3),
+        ("touch60_snr20's calibrated maps", *probs["touch60_snr20"][:2],
+         *probs["touch60_snr20"][2:])])
+
+    seeded_in = _resolve_inputs(fg, pk, pp.peak_threshold, pp.fg_threshold,
+                                r3)
+    chase_runs, _ = check_gated_loops("the seeded-weights maps", fg,
+                                      *seeded_in)
+    fixture_passes = {}
+    for name, (f, p, p_thr, thr, radius) in probs.items():
+        fgm, dirs, v, _ = _resolve_inputs(f, p, p_thr, thr, radius)
+        chase_resolve(v, dirs, fgm)
+        fixture_passes[name] = passes_run(chase_resolve.last_gates)
+        del fgm, dirs, v
+    print(f"[18] (c) chase passes run on the c5 fixtures under calibrated c3:"
+          f" {fixture_passes}")
+    capped = [n for n, k in fixture_passes.items() if k == 128]
+    if capped:
+        f, p, p_thr, thr, radius = probs[capped[0]]
+        check_gated_loops(f"{capped[0]} (the 128-pass cap)", f,
+                          *_resolve_inputs(f, p, p_thr, thr, radius))
+    else:
+        # no fixture reaches the cap: a constant peak map over the whole
+        # stack, where every chain climbs +z, then +y, then +x to the one
+        # root at the last voxel (95 + 511 + 511 hops, past 128 x 8)
+        flat = torch.full(MAIN_SHAPE, 0.7, device="cuda")
+        got = check_gated_loops("a constant peak map (the 128-pass cap)",
+                                flat, *_resolve_inputs(flat, flat, 0.5, 0.5,
+                                                       r3))
+        if got[0] != 128:
+            raise AssertionError(f"[18] the constant map ran {got[0]} chase "
+                                 "passes, not the cap of 128")
+        del flat
+    del probs
+
+    # (d) no host read from the call to the label tensor; the labels ==
+    # the twins' post-processing of the same sweep, run outside the mode
+    main_cfgs = {
+        "plain apply": cfg.override(**{"infer.apply_impl": "flax"}),
+        "fused apply": cfg.override(**{"infer.apply_impl": "fused"}),
+        "calibrated c3": calibrated(c3, ann_path, vol.numel()),
+    }
+    walls = {}
+    for tag, c in main_cfgs.items():
+        net = seeded if tag != "calibrated c3" else model
+        infer = make_infer_fn(net, c)
+        hard_sync(infer(vol))                   # warm
+        with PassTally() as tally:
+            t0 = time.perf_counter()
+            got = no_host_reads(lambda: infer(vol))
+            t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls[tag] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0))
+        ran = tally.passes()
+        _, stage_net, _ = make_infer_stages(net, c)
+        want = make_infer_stages(net, c, plain=True)[2](stage_net(vol))
+        if not torch.equal(got, want):
+            raise AssertionError(f"[18] (d) {tag}: labels != the twins' on "
+                                 f"{int((got != want).sum())} voxels")
+        print(f"[18] (d) make_infer_fn, {tag}: no host read (sync debug mode"
+              f" 'error'), {int(got.max())} instances, labels == the twins' "
+              f"post-processing of the same sweep; chase / flood passes run "
+              f"{ran[0]} / {ran[1]}; host enqueue {walls[tag][0]:.1f} ms, "
+              f"wall {walls[tag][1]:.1f} ms")
+    bcfg = cfgs["touch60_snr20"]
+    batched, single = (make_batched_infer_fn(model, bcfg),
+                       make_infer_fn(model, bcfg))
+    hard_sync(batched(vols))
+    with PassTally() as tally:
+        got = no_host_reads(lambda: batched(vols))
+    ran = tally.passes()
+    _, stage_net, _ = make_infer_stages(model, bcfg)
+    post_plain = make_infer_stages(model, bcfg, plain=True)[2]
+    for i in range(len(vols)):
+        want = post_plain(stage_net(vols[i]))
+        if not torch.equal(got[i], want):
+            raise AssertionError(f"[18] (d) batched volume {i}: labels != the"
+                                 f" twins' on {int((got[i] != want).sum())} "
+                                 "voxels")
+    print(f"[18] (d) make_batched_infer_fn on the five c5 fixtures "
+          f"({len(vols)}, {', '.join(map(str, MAIN_SHAPE))}): no host read, "
+          "labels == the twins' post-processing per volume; chase / flood "
+          f"passes run {ran[0]} / {ran[1]} in all")
+
+    # (e) warm times, in turns
+    runs = {"batched": [], "five single calls": []}
+    for tag in ("batched", "five single calls", "five single calls",
+                "batched"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tag == "batched":
+            batched(vols)
+        else:
+            for i in range(len(vols)):
+                single(vols[i])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        runs[tag].append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)))
+    print("[18] (e) " + "; ".join(
+        f"{tag}: host enqueue / wall "
+        + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in r) + " ms"
+        for tag, r in runs.items()))
+    timing = time_gated_loops(*seeded_in[:4], fg, chase_runs)
+    del vols, model, seeded
+    torch.cuda.empty_cache()
+    return records, {"resolve_ms": timing, "main_path_ms": walls,
+                     "batched_ms": runs, "chase_passes_seeded": chase_runs,
+                     "chase_passes_c5": fixture_passes}
+
+
 def _timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3442,8 +3986,10 @@ def _timed(label, fn, *args):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="",
-                        help="comma-separated phases to run after 1-2 "
-                             "(default: all, with the final record)")
+                        help="comma-separated phases to run after 1-2, "
+                             "e.g. 18 (brings 9) for one-volume inference "
+                             "as one device program (default: all, with "
+                             "the final record)")
     parser.add_argument("--worker", nargs=2, metavar=("LEG", "DIR"),
                         help="one process of phase 16 (started by it)")
     args = parser.parse_args(argv)
@@ -3453,8 +3999,8 @@ def main(argv=None):
     only = {int(p) for p in args.phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if only & {13, 14, 15, 16, 17}:
-        only.add(9)             # phases 13-17 infer with phase 9's checkpoint
+    if only & {13, 14, 15, 16, 17, 18}:
+        only.add(9)             # phases 13-18 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -3465,14 +4011,15 @@ def main(argv=None):
 
     sv = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
                            seed=SEED)
-    kernels, launches, tile_launches = {}, {}, {}
+    kernels, launches, tile_launches, passes_ran = {}, {}, {}, {}
     streamed, sharded, multiproc, touching = {}, {}, {}, {}
     if want(3):
         kernels.update(_timed("phase 3", phase_kernels, sv.image))
     if want(4):
         with tempfile.TemporaryDirectory() as tmp:
-            launches, tile_launches, ckpt, cfg, default_labels = _timed(
-                "phase 4", phase_main_path, sv.image, tmp)
+            (launches, tile_launches, passes_ran, ckpt, cfg,
+             default_labels) = _timed("phase 4", phase_main_path, sv.image,
+                                      tmp)
             seeded = _timed("phase 4 warm", phase_warm_stages, sv.image, ckpt,
                             cfg)
             for k in kernels:           # phase 3's records, where it ran
@@ -3503,9 +4050,15 @@ def main(argv=None):
             if want(16):
                 multiproc = _timed("phase 16", phase_multiprocess, sv,
                                    *trained[:3], tmp)
+            c5 = None
             if want(17):
-                touching = _timed("phase 17", phase_touching, trained[0],
-                                  tmp)
+                touching, c5 = _timed("phase 17", phase_touching, trained[0],
+                                      tmp)
+            if want(18):
+                hist_recs, _ = _timed("phase 18", phase_one_program, sv,
+                                      trained[0], trained[2], c5, tmp)
+                kernels.update(hist_recs)
+            del c5
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):
@@ -3528,7 +4081,9 @@ def main(argv=None):
                "multiprocess_launches": multiproc.get(k, 0),
                "touching_launches": touching.get(k, 0),
                **({"tile_launches": tile_launches[k]}
-                  if k in tile_launches else {}), **r}
+                  if k in tile_launches else {}),
+               **({"passes_run": passes_ran[k]} if k in passes_ran else {}),
+               **r}
               for k, r in kernels.items()]
     for k, n in tile_launches.items():
         if n == 0:

@@ -11,7 +11,13 @@ positions inside a window's edge), the ring of plane slots and its reuse,
 the state bytes that let all time levels share one copy of a plane, the
 fixed candidate order that stands for the linear-index tie-break, the
 masking by coordinate, the write-back of the core alone, the remainder
-launch and the ``changed`` flag. The models follow the kernels step by step
+launch and the ``changed`` flag. The loops around the passes run on the
+card too (``tpuseg_chase_resolve`` / ``tpuseg_flood_resolve``): every pass
+the loop may run is launched and gated on the previous pass's count or flag,
+each in a slot of its own, with the chase's first idle pass copying its
+input; their models are held against the JAX package's
+``chase_resolve`` / ``flood_resolve`` (interpret mode) and against the
+port's loops on the CPU, passes run included. The models follow the kernels step by step
 (the names are the kernels'), at small tiles so that small volumes have
 several windows and z chunks. What they leave out is how the flood kernel
 shares the work among threads (four x positions a thread, their state bytes
@@ -25,8 +31,13 @@ import pytest
 import torch
 
 from tpuseg.ops.pallas_resolve import chase_pass as ref_chase_pass
+from tpuseg.ops.pallas_resolve import chase_resolve as ref_chase_resolve
 from tpuseg.ops.pallas_resolve import flood_pass as ref_flood_pass
-from tpuseg_torch.ops.resolve import chase_pass_plain, flood_pass_plain
+from tpuseg.ops.pallas_resolve import flood_resolve as ref_flood_resolve
+from tpuseg_torch.ops.resolve import (chase_pass_plain, chase_resolve,
+                                      flood_pass_plain, flood_resolve,
+                                      passes_run)
+from tpuseg_torch.ops.watershed import steepest_dir_codes
 
 from test_torch_model import single_torch_thread  # noqa: F401
 
@@ -317,3 +328,193 @@ def test_flood_march_model_matches_pallas(iters):
                           block=(8, 8), interpret=True)
     got, _ = flood_pass_model(pot, lab, iters, tile=(8, 32), zchunk=8)
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# ------------------------------------- the loops, gated on the device
+
+
+def chase_resolve_model(values, dirs, fg, iters, max_passes):
+    """``tpuseg_chase_resolve``: ``max_passes`` passes launched. Pass k
+    reads the caller's volume (k = 1) or the buffer pass k - 1 wrote and
+    writes b1 (k odd) or b2 (k even); it runs iff its gate, slot k - 1, is
+    nonzero (slot 0: foreground zeros of the input) and then puts its count
+    in slot k; an idle pass copies its input when k <= 2 or pass k - 1 ran.
+    Returns ``(the buffer of pass max_passes, passes run, slots)``."""
+    if max_passes < 1:
+        return values, 0, None
+    slots = np.zeros(max_passes + 1, np.int64)
+    slots[0] = np.sum(fg & (values == 0))
+    bufs = {"in": values, "b1": np.full_like(values, POISON),
+            "b2": np.full_like(values, POISON)}
+    ran = 0
+    for k in range(1, max_passes + 1):
+        src = "in" if k == 1 else ("b1" if k % 2 == 0 else "b2")
+        dst = "b1" if k % 2 else "b2"
+        if slots[k - 1] != 0:
+            bufs[dst] = chase_walk_model(bufs[src], dirs, iters)
+            slots[k] = np.sum(fg & (bufs[dst] == 0))
+            ran += 1
+        elif k <= 2 or slots[k - 2] != 0:
+            bufs[dst] = bufs[src].copy()
+    return bufs["b1" if max_passes % 2 else "b2"], ran, slots
+
+
+def flood_resolve_model(seed_labels, fg, potential, max_iters, iters_per_pass,
+                        **kw):
+    """``tpuseg_flood_resolve``: the whole passes and the remainder
+    launched, pass k from b0 (k odd) or b1 into the other; whole pass k runs
+    iff slot k - 1 is set (slot 0 is 1) and sets slot k if it changed a
+    label; the remainder is gated on slot ``full``. An idle pass does
+    nothing: its gate says the last pass that ran left its input as it was.
+    Returns ``(the buffer of the last pass launched, passes run)``."""
+    pot = np.where(fg, potential, -np.inf).astype(np.float32)
+    bufs = [np.where(fg, seed_labels, 0).astype(np.int32),
+            np.full(seed_labels.shape, POISON, np.int32)]
+    full, rem = divmod(max_iters, iters_per_pass)
+    full = max(full, 0)
+    launched = full + (rem > 0)
+    slots = np.zeros(full + 2, np.int64)
+    slots[0] = 1
+    ran = 0
+    for k in range(1, launched + 1):
+        if slots[k - 1]:
+            steps = iters_per_pass if k <= full else rem
+            bufs[k % 2], changed = flood_pass_model(pot, bufs[(k + 1) % 2],
+                                                    steps, **kw)
+            slots[k] = changed
+            ran += 1
+    return bufs[launched % 2], ran
+
+
+def _plateau_row(n):
+    """A 1 x 1 x n foreground row of constant peak: every voxel points at
+    its +x neighbour, the last voxel is the one seeded root, so the chain is
+    n - 1 hops long and resolves in ceil((n - 1) / 8) passes of 8."""
+    peak = np.full((1, 1, n), 0.7, np.float32)
+    fg = np.ones((1, 1, n), bool)
+    dirs = steepest_dir_codes(torch.from_numpy(peak),
+                              torch.from_numpy(fg)).numpy()
+    v0 = np.zeros((1, 1, n), np.int32)
+    v0[0, 0, -1] = n
+    return peak, fg, dirs, v0
+
+
+def _port_chase(values, dirs, fg, iters, max_passes):
+    """The port's labels, passes run and gates (its host loop's slots)."""
+    got = chase_resolve(torch.from_numpy(values), torch.from_numpy(dirs),
+                        torch.from_numpy(fg), iters, max_passes).numpy()
+    gates = chase_resolve.last_gates
+    return got, passes_run(gates), gates.numpy()
+
+
+# (row length, max_passes, passes that run): one pass; convergence after 5;
+# the cap before convergence (the 128-pass cap at its own scale); an input
+# already resolved (no pass runs: passes 1 and 2 copy); one and two passes
+# launched
+CHASE_CASES = [(6, 128, 1), (40, 128, 5), (100, 4, 4), (1, 128, 0),
+               (30, 1, 1), (30, 2, 2), (9, 3, 1)]
+
+
+@pytest.mark.parametrize("n,max_passes,runs", CHASE_CASES)
+def test_chase_resolve_model_matches_reference(n, max_passes, runs):
+    _, fg, dirs, v0 = _plateau_row(n)
+    got, ran, slots = chase_resolve_model(v0, dirs, fg, 8, max_passes)
+    assert ran == runs and (got != POISON).all()
+    want = np.asarray(ref_chase_resolve(
+        jnp.asarray(v0), jnp.asarray(dirs), jnp.asarray(fg), iters_per_pass=8,
+        max_passes=max_passes, block=(1, 1), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    port, port_ran, gates = _port_chase(v0, dirs, fg, 8, max_passes)
+    np.testing.assert_array_equal(got, port)
+    assert port_ran == ran
+    # the gates: every pass that ran saw a nonzero slot, every idle one 0,
+    # and the host loop read the counts the slots hold
+    assert (slots[:max_passes] != 0).sum() == ran
+    np.testing.assert_array_equal(gates, slots[:gates.size])
+
+
+def test_chase_resolve_model_on_watershed_chains():
+    """Many chains of many lengths from steepest ascent on blob maps, a
+    third of the roots unseeded (negative payloads)."""
+    rng = np.random.default_rng(4)
+    shape = PALLAS_SHAPE
+    zz, yy, xx = np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape],
+                             indexing="ij")
+    peak = np.zeros(shape, np.float32)
+    for _ in range(6):
+        c = [rng.uniform(0, s) for s in shape]
+        d2 = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + ((xx - c[2]) / 6) ** 2
+        peak = np.maximum(peak, np.exp(-0.5 * d2 / 3.0 ** 2))
+    peak = (peak + rng.normal(0, 0.002, shape)).astype(np.float32)
+    fg = peak > 0.05
+    dirs = steepest_dir_codes(torch.from_numpy(peak),
+                              torch.from_numpy(fg)).numpy()
+    lin = np.arange(peak.size).reshape(shape) + 1
+    roots = fg & (dirs == 0)
+    v0 = np.where(roots, np.where(rng.random(shape) < 0.66, lin, -lin),
+                  0).astype(np.int32)
+    for max_passes in (2, 128):
+        got, ran, _ = chase_resolve_model(v0, dirs, fg, 8, max_passes)
+        want = np.asarray(ref_chase_resolve(
+            jnp.asarray(v0), jnp.asarray(dirs), jnp.asarray(fg),
+            iters_per_pass=8, max_passes=max_passes, block=(8, 16),
+            interpret=True))
+        np.testing.assert_array_equal(got, want)
+        port, port_ran, _ = _port_chase(v0, dirs, fg, 8, max_passes)
+        np.testing.assert_array_equal(got, port)
+        assert port_ran == ran >= 2
+    assert ran < 128 and not (fg & (got == 0)).any()      # converged
+
+
+def _port_flood(seeds, fg, pot, max_iters, iters_per_pass):
+    got = flood_resolve(torch.from_numpy(seeds), torch.from_numpy(fg),
+                        torch.from_numpy(pot), max_iters,
+                        iters_per_pass).numpy()
+    return got, passes_run(flood_resolve.last_gates)
+
+
+# (max_iters, iters_per_pass): one whole pass; convergence long before the
+# cap (the remainder gated off); a cap with a remainder (max_iters %
+# iters_per_pass != 0) that runs; no whole pass (the remainder ungated);
+# nothing at all
+FLOOD_CASES = [(8, 8), (96, 8), (13, 8), (5, 8), (0, 8), (10, 3)]
+
+
+@pytest.mark.parametrize("max_iters,iters_per_pass", FLOOD_CASES)
+def test_flood_resolve_model_matches_reference(max_iters, iters_per_pass):
+    pot, lab = _flood_inputs(PALLAS_SHAPE, seed=30 + max_iters,
+                             kind="plateaus")
+    fg = pot > -np.inf
+    lab = np.where(np.random.default_rng(max_iters).random(lab.shape) < 0.3,
+                   lab, 0).astype(np.int32)            # fewer seeds: longer
+    got, ran = flood_resolve_model(lab, fg, pot, max_iters, iters_per_pass,
+                                   tile=(8, 32), zchunk=8)
+    assert (got != POISON).all()
+    want = np.asarray(ref_flood_resolve(
+        jnp.asarray(lab), jnp.asarray(fg), jnp.asarray(pot), max_iters,
+        iters_per_pass=iters_per_pass, block=(8, 8), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    port, port_ran = _port_flood(lab, fg, pot, max_iters, iters_per_pass)
+    np.testing.assert_array_equal(got, port)
+    assert port_ran == ran
+    full, rem = divmod(max_iters, iters_per_pass)
+    assert ran <= full + (rem > 0)
+    if max_iters == 96:
+        assert ran < full                            # converged early
+    if max_iters in (13, 5, 10):
+        assert ran == full + 1                       # the remainder ran
+
+
+def test_flood_resolve_model_remainder_gated_off():
+    """A flood that stops changing within its whole passes skips the
+    remainder: the last whole pass that ran found nothing to change."""
+    pot = np.zeros((2, 8, 32), np.float32)
+    lab = np.zeros((2, 8, 32), np.int32)
+    lab[0, 0, 0] = 1
+    fg = np.ones(pot.shape, bool)
+    got, ran = flood_resolve_model(lab, fg, pot, 8 * 20 + 3, 8, tile=(8, 32),
+                                   zchunk=8)
+    assert (got == 1).all() and ran < 20
+    port, port_ran = _port_flood(lab, fg, pot, 8 * 20 + 3, 8)
+    np.testing.assert_array_equal(got, port)
+    assert port_ran == ran

@@ -118,12 +118,16 @@ __device__ __forceinline__ int flood_choice(const unsigned char* s_st,
 // h (1..HMAX) lockstep flood steps from `in` into `out` (no alias) for the
 // tile (blockIdx.y, blockIdx.x) and the z chunk blockIdx.z of `zchunk`
 // planes. Sets *changed to 1 if a core voxel took a label. `vec`: W is a
-// multiple of 4 and the three volumes are 16-byte aligned.
+// multiple of 4 and the three volumes are 16-byte aligned. With `gate` set
+// the launch runs only if *gate != 0 (else every block returns at once,
+// `out` untouched).
 template <int HMAX, int TY, int TX, int NT>
 __global__ void __launch_bounds__(NT)
 flood_march_kernel(const float* __restrict__ pot, const int* __restrict__ in,
                    int* __restrict__ out, int* __restrict__ changed, int h,
-                   int zchunk, int D, int H, int W, bool vec) {
+                   int zchunk, int D, int H, int W, bool vec,
+                   const int* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;  // uniform over the grid
   using T = FloodTile<HMAX, TY, TX, NT>;
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_lab = reinterpret_cast<int*>(smem);
@@ -328,11 +332,12 @@ flood_march_kernel(const float* __restrict__ pot, const int* __restrict__ in,
   if (__syncthreads_or(took) && tid == 0) *changed = 1;
 }
 
-// One launch of flood_march_kernel over the whole volume: h <= HMAX steps.
+// One launch of flood_march_kernel over the whole volume: h <= HMAX steps,
+// gated on *gate where `gate` is set.
 template <int HMAX, int TY, int TX, int NT>
 cudaError_t launch_flood(const float* pot, const int* in, int* out,
                          int* changed, int h, int D, int H, int W,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const int* gate = nullptr) {
   using T = FloodTile<HMAX, TY, TX, NT>;
   auto kernel = flood_march_kernel<HMAX, TY, TX, NT>;
   static bool opted_in = false;
@@ -354,7 +359,7 @@ cudaError_t launch_flood(const float* pot, const int* in, int* out,
   };
   const bool vec = W % 4 == 0 && (addr(pot) | addr(in) | addr(out)) % 16 == 0;
   kernel<<<grid, NT, T::kSmemBytes, stream>>>(pot, in, out, changed, h,
-                                              zchunk, D, H, W, vec);
+                                              zchunk, D, H, W, vec, gate);
   return cudaGetLastError();
 }
 

@@ -103,13 +103,14 @@ __global__ void maxpool_axis_kernel(const T* __restrict__ in,
 
 __global__ void candidate_index_kernel(const float* __restrict__ peak,
                                        const float* __restrict__ mx,
-                                       int* __restrict__ cidx, float thr,
-                                       int D, int H, int W) {
+                                       int* __restrict__ cidx,
+                                       const float* __restrict__ thr, int D,
+                                       int H, int W) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= W) return;
   const int i = (blockIdx.z * H + blockIdx.y) * W + x;
   const float v = peak[i];
-  cidx[i] = (v >= thr && v >= mx[i]) ? i : -1;
+  cidx[i] = (v >= *thr && v >= mx[i]) ? i : -1;
 }
 
 // Separable max-pool of `src` over radius (rz, ry, rx), ping-ponging between
@@ -136,8 +137,9 @@ const T* maxpool3(const T* src, T* buf0, T* buf1, const int* radius, int D,
 
 // Fills cidx and returns midx (in i0, i1 or, with every radius 0, cidx
 // itself); nullptr with *err set when a launch fails. f0, f1 (float) and
-// i0, i1 (int) are volume-sized scratch.
-inline const int* nms_candidates(const float* peak, float thr,
+// i0, i1 (int) are volume-sized scratch; *thr (device memory) is the peak
+// threshold.
+inline const int* nms_candidates(const float* peak, const float* thr,
                                  const int* radius, float* f0, float* f1,
                                  int* cidx, int* i0, int* i1, int D, int H,
                                  int W, cudaStream_t stream,
@@ -292,14 +294,18 @@ __device__ __forceinline__ T4 pool_y_quad(const T* own, int WX, int ry) {
 template <int RZ, int RMAX, int NT, bool DIRS>
 __global__ void __launch_bounds__(NT, RMAX <= kTileSmallR ? 2 : 1)
 nms_tile_kernel(const float* __restrict__ peak, const float* __restrict__ fgp,
-                float thr, float fg_thr, int ry, int rx, int zchunk, int D,
-                int H, int W, bool vec, unsigned char* __restrict__ seeds,
-                int* __restrict__ dirs, int* __restrict__ v0) {
+                const float* __restrict__ thrs, int ry, int rx, int zchunk,
+                int D, int H, int W, bool vec,
+                unsigned char* __restrict__ seeds, int* __restrict__ dirs,
+                int* __restrict__ v0) {
   constexpr int NR = 2 * RZ + 1;
   constexpr int P = kTilePlanes;
   static_assert((kTileY + 4 * RMAX) * (kTileX + 4 * RMAX) <= 4 * NT,
                 "a quad for every thread");
   extern __shared__ __align__(16) unsigned char smem[];
+  // the peak and foreground thresholds, from device memory (fg: K1 only)
+  const float thr = __ldg(thrs);
+  const float fg_thr = DIRS ? __ldg(thrs + 1) : 0.0f;
   const int hy = 2 * ry, hx = 2 * rx;
   const int WY = kTileY + 2 * hy, WX = kTileX + 2 * hx, WPOS = WY * WX;
   const int WQ = WX / 4;
@@ -579,8 +585,8 @@ nms_tile_kernel(const float* __restrict__ peak, const float* __restrict__ fgp,
 }
 
 template <int RZ, int RMAX, int NT, bool DIRS>
-cudaError_t launch_nms_tile_rz(const float* peak, const float* fgp, float thr,
-                               float fg_thr, int ry, int rx, int zchunks,
+cudaError_t launch_nms_tile_rz(const float* peak, const float* fgp,
+                               const float* thrs, int ry, int rx, int zchunks,
                                int D, int H, int W, unsigned char* seeds,
                                int* dirs, int* v0, cudaStream_t stream) {
   auto kernel = nms_tile_kernel<RZ, RMAX, NT, DIRS>;
@@ -607,24 +613,26 @@ cudaError_t launch_nms_tile_rz(const float* peak, const float* fgp, float thr,
       W % 4 == 0 && rx % 2 == 0 &&
       (addr(peak) | addr(fgp) | addr(seeds) | addr(dirs) | addr(v0)) % 16 == 0;
   kernel<<<grid, NT, nms_tile_smem(ry, rx), stream>>>(
-      peak, fgp, thr, fg_thr, ry, rx, zchunk, D, H, W, vec, seeds, dirs, v0);
+      peak, fgp, thrs, ry, rx, zchunk, D, H, W, vec, seeds, dirs, v0);
   return cudaGetLastError();
 }
 
 // The tile pass over the whole volume: the seed mask (DIRS false; fgp,
-// dirs, v0 unused) or dirs and v0 (DIRS true; seeds unused). Radii above
-// kTileMaxR are refused: the wrappers send those to the chain. `zchunks`:
-// the number of z chunks, 0 for the rule above.
+// dirs, v0 unused) or dirs and v0 (DIRS true; seeds unused). thrs: device
+// memory holding the peak threshold and (DIRS) the foreground threshold.
+// Radii above kTileMaxR are refused: the wrappers send those to the chain.
+// `zchunks`: the number of z chunks, 0 for the rule above.
 template <bool DIRS>
-cudaError_t launch_nms_tile(const float* peak, const float* fgp, float thr,
-                            float fg_thr, int rz, int ry, int rx, int zchunks,
-                            int D, int H, int W, unsigned char* seeds,
-                            int* dirs, int* v0, cudaStream_t s) {
+cudaError_t launch_nms_tile(const float* peak, const float* fgp,
+                            const float* thrs, int rz, int ry, int rx,
+                            int zchunks, int D, int H, int W,
+                            unsigned char* seeds, int* dirs, int* v0,
+                            cudaStream_t s) {
   if (min(rz, min(ry, rx)) < 0 || max(rz, max(ry, rx)) > kTileMaxR)
     return cudaErrorInvalidValue;
 #define TPUSEG_TILE(RZ, RMAX, NT)                                            \
-  return launch_nms_tile_rz<RZ, RMAX, NT, DIRS>(peak, fgp, thr, fg_thr, ry,  \
-                                                rx, zchunks, D, H, W, seeds, \
+  return launch_nms_tile_rz<RZ, RMAX, NT, DIRS>(peak, fgp, thrs, ry, rx,    \
+                                                zchunks, D, H, W, seeds,     \
                                                 dirs, v0, s)
   if (max(rz, max(ry, rx)) <= kTileSmallR) {
     // window at most 40 x 40: 400 quads

@@ -40,9 +40,11 @@ __global__ void seed_dirs_kernel(const float* __restrict__ peak,
                                  const int* __restrict__ cidx,
                                  const int* __restrict__ midx,
                                  int* __restrict__ dirs, int* __restrict__ v0,
-                                 float fg_thr, int D, int H, int W) {
+                                 const float* __restrict__ thrs, int D, int H,
+                                 int W) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= W) return;
+  const float fg_thr = __ldg(thrs + 1);
   const int y = blockIdx.y;
   const int z = blockIdx.z;
   const int i = (z * H + y) * W + x;
@@ -64,17 +66,18 @@ __global__ void seed_dirs_kernel(const float* __restrict__ peak,
 using namespace tpuseg;
 
 // (dirs, v) of pallas_seed.seed_chase_pass by the tile pass; every radius
-// <= tpuseg_nms_tile_max_radius(). v0 is volume-sized scratch, the result v
+// <= tpuseg_nms_tile_max_radius(). thrs: the peak and the foreground
+// threshold, two floats in device memory (the host never reads them; the
+// reference's traced scalars). v0 is volume-sized scratch, the result v
 // lands in v_out. `zchunks`: 0, or the number of z chunks (for tuning).
 extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
-                                 float peak_thr, float fg_thr, int rz, int ry,
-                                 int rx, int h0, int zchunks, int D, int H,
-                                 int W, int* v0, int* dirs, int* v_out,
+                                 const float* thrs, int rz, int ry, int rx,
+                                 int h0, int zchunks, int D, int H, int W,
+                                 int* v0, int* dirs, int* v_out,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = launch_nms_tile<true>(
-      peak, fgp, peak_thr, fg_thr, rz, ry, rx, zchunks, D, H, W, nullptr,
-      dirs, v0, s);
+      peak, fgp, thrs, rz, ry, rx, zchunks, D, H, W, nullptr, dirs, v0, s);
   if (err != cudaSuccess) return err;
   return run_chase(v0, dirs, v_out, nullptr, nullptr, h0, D, H, W, s);
 }
@@ -82,8 +85,8 @@ extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
 // The same by the chain, for any radius. Scratch: f0, f1 (float, volume
 // sized) and cidx, i0, i1 (int, volume sized).
 extern "C" int tpuseg_seed_chase_chain(const float* peak, const float* fgp,
-                                       float peak_thr, float fg_thr, int rz,
-                                       int ry, int rx, int h0, int D, int H,
+                                       const float* thrs, int rz, int ry,
+                                       int rx, int h0, int D, int H,
                                        int W, float* f0, float* f1, int* cidx,
                                        int* i0, int* i1, int* dirs,
                                        int* v_out, void* stream) {
@@ -92,14 +95,14 @@ extern "C" int tpuseg_seed_chase_chain(const float* peak, const float* fgp,
   const int radius[3] = {rz, ry, rx};
   cudaError_t err;
 
-  const int* midx = nms_candidates(peak, peak_thr, radius, f0, f1, cidx, i0, i1,
+  const int* midx = nms_candidates(peak, thrs, radius, f0, f1, cidx, i0, i1,
                                    D, H, W, s, &err);
   if (err != cudaSuccess) return err;
 
   // the pooled peak map in f0/f1 is dead once cidx exists: f0 holds v0
   int* v0 = reinterpret_cast<int*>(f0);
   seed_dirs_kernel<<<grid, kThreads, 0, s>>>(peak, fgp, cidx, midx, dirs, v0,
-                                             fg_thr, D, H, W);
+                                             thrs, D, H, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return run_chase(v0, dirs, v_out, nullptr, nullptr, h0, D, H, W, s);

@@ -12,6 +12,19 @@ tensor on any device:
 function volume by volume, and ``infer_volume`` is the one-shot
 convenience call.
 
+On the card the whole call is enqueued without a host read, as the
+reference runs it as one jitted program: the percentile scalars, the
+calibrated threshold and the size filter's label counts come from kernels
+of their own (``ops/hist.py``) and stay on the device, K1 and K5 read their
+thresholds from device memory, and the chase and the flood loop on the
+device (``ops/resolve.py``). The host's launches, not its reads, then
+bound the call (``make_batched_infer_fn``). Three opt-ins still read the
+host:
+``postproc.merge_saddle_ratio > 0`` (the saddle merge's ``torch.unique``,
+``ops/merge.py``), ``with_diagnostics=True`` (the truncation count) and
+the streamed and sharded paths (``infer/streaming.py``,
+``infer/sharded.py``), between chunks or shards.
+
 ``InferConfig.apply_impl`` selects the sweep's forward: "flax" is the module
 forward, "fused" the eval apply of ``models/fused_eval.py`` (the three
 full-resolution ConvBlocks on the K4 kernel).
@@ -35,7 +48,8 @@ from tpuseg_torch.infer.tiles import rf_radius_bound, tiled_forward
 from tpuseg_torch.ops.calibrate import threshold_for_fraction
 from tpuseg_torch.ops.filter import size_filter_and_compact
 from tpuseg_torch.ops.merge import saddle_merge
-from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
+from tpuseg_torch.ops.watershed import (flood_truncation_count,
+                                        threshold_mask, watershed)
 
 
 def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
@@ -43,10 +57,11 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
     pp = cfg.postproc
     fg_threshold = pp.fg_threshold
     if pp.fg_target_fraction > 0:
-        # volume-matched threshold (ops/calibrate.py); one host read
-        fg_threshold = float(threshold_for_fraction(
+        # volume-matched threshold (ops/calibrate.py): a 0-d tensor that
+        # stays on the device, as the reference keeps it traced
+        fg_threshold = threshold_for_fraction(
             fg_prob, pp.fg_target_fraction,
-            sample_stride=cfg.data.normalize_sample_stride))
+            sample_stride=cfg.data.normalize_sample_stride, plain=plain)
     labels = watershed(fg_prob, peak_prob, peak_threshold=pp.peak_threshold,
                        fg_threshold=fg_threshold,
                        peak_radius=pp.nms_radius, flood_iters=pp.flood_iters,
@@ -58,13 +73,13 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
     if want_diag:
         # measured on the raw watershed output, before filtering
         diag = {"flood_truncated": int(flood_truncation_count(
-            labels, fg_prob >= fg_threshold))}
+            labels, threshold_mask(fg_prob, fg_threshold)))}
     if pp.merge_saddle_ratio > 0:
         # prominence agglomeration: basins split by duplicate peaks on a
         # flat top merge; real instances keep their valley
         labels = saddle_merge(labels, peak_prob, pp.merge_saddle_ratio,
                               max_pairs=pp.merge_max_pairs)
-    labels = size_filter_and_compact(labels, pp.min_size)
+    labels = size_filter_and_compact(labels, pp.min_size, plain=plain)
     return (labels, diag) if want_diag else labels
 
 
@@ -89,9 +104,11 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
                       with_diagnostics: bool = False, plain: bool = False):
     """``(infer, stage_net, stage_post)``: ``stage_net(volume)`` gives the
     logits, ``stage_post(logits)`` the labels (and diagnostics), ``infer``
-    chains them. ``plain=True`` runs the plain twins of the watershed's and
-    the fused apply's kernels instead of the CUDA kernels (the card's
-    end-to-end check of the kernels)."""
+    chains them. ``plain=True`` runs the plain twins of the post-processing's
+    kernels (the calibrated threshold's histogram, the watershed, the size
+    filter's counts) and of the fused apply's instead of the CUDA kernels
+    (the card's end-to-end check of the kernels); the percentile scalars of
+    ``stage_net`` still come from H1 and H2."""
     apply_fn = make_apply_fn(model, cfg, plain)
     if cfg.infer.program not in ("fused", "staged"):
         raise ValueError(f"unknown InferConfig.program {cfg.infer.program!r}")
@@ -170,11 +187,14 @@ def make_batched_infer_fn(model, cfg: Config, normalize: bool = True):
     """``infer(volumes) -> int32 labels`` (N, D, H, W) for a stacked
     (N, D, H, W) tensor: each volume normalized with its own percentiles
     and labelled independently by :func:`make_infer_fn`'s function, one
-    after the other, into one label tensor on the volumes' device. Nothing
-    volume-sized leaves the device; the host reads are each volume's own
-    scalar reads (its 4096 histogram counts, the calibrated threshold where
-    ``postproc.fg_target_fraction > 0``, the chase's and flood's
-    convergence flags)."""
+    after the other, into one label tensor on the volumes' device. On the
+    card no call reads the host (module docstring; the saddle merge is the
+    one opt-in that does), as the reference maps the volumes inside one
+    program without a host round trip. The host's launches still bound the
+    batch: each volume's, 128 of them chase passes, fill the launch queue,
+    so on the card the batch takes as long as N single calls
+    (``chip_smoke.py`` [18](e); ROADMAP.md, Queue 2: the batched call as
+    one CUDA graph)."""
     infer = make_infer_fn(model, cfg, normalize)
 
     def infer_batch(volumes: torch.Tensor) -> torch.Tensor:

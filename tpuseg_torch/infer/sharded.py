@@ -92,7 +92,7 @@ def global_histogram_percentile(slabs, pcts, bins: int = 4096,
     n = int(psum([torch.tensor(n)]))
     vals = percentiles_from_counts(psum(hists), n, lo[None], span[None],
                                    pcts, bins)
-    return tuple(torch.tensor(v[0], device=lo.device) for v in vals)
+    return tuple(vals[:, 0].to(lo.device))
 
 
 def _core(t: torch.Tensor, halo: int, sizes) -> torch.Tensor:
@@ -260,12 +260,13 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                 hists.append(fg_bin_counts(core))
                 n += core.numel()
             n = int(psum([torch.tensor(n)]))
-            thr = float(threshold_from_counts(psum(hists), n,
-                                              pp.fg_target_fraction))
+            # a 0-d float32 tensor, as the reference's traced threshold:
+            # a bf16 map compares with it in float32 (ops.watershed)
+            thr = threshold_from_counts(psum(hists), n, pp.fg_target_fraction)
             parts = {}
             for r in local:
                 f, p = probs.pop(r)
-                parts[r] = label(r, f, p, thr)
+                parts[r] = label(r, f, p, thr.to(f.device))
         else:
             parts = {r: label(r, *sweep(r), pp.fg_threshold) for r in local}
         report_overflow([t["n_distinct"] for t in parts.values()], cap,

@@ -28,29 +28,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of csrc/*.cu's entry points; every pointer and the stream are
 # void* so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "tpuseg_seed_chase": [_P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+    "tpuseg_seed_chase": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P],
-    "tpuseg_seed_chase_chain": [_P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+    "tpuseg_seed_chase_chain": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P, _P],
     "tpuseg_chase_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpuseg_chase_resolve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tpuseg_flood_steps_per_launch": [],
     "tpuseg_flood_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpuseg_flood_resolve": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_conv3x3_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_convblock": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],
     "tpuseg_convblock_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P],
-    "tpuseg_peak_nms": [_P, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "tpuseg_peak_nms_chain": [_P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+    "tpuseg_peak_nms": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tpuseg_peak_nms_chain": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P],
     "tpuseg_nms_tile_max_radius": [],
     "tpuseg_nms_tile_smem": [_I, _I],
     "tpuseg_smem_optin": [],
+    "tpuseg_bin_counts": [_P, _L, _I, _P, _P, _I, _I, _P, _P],
+    "tpuseg_percentiles": [_P, _I, _I, _L, _P, _P, _P, _I, _P, _P],
+    "tpuseg_label_counts": [_P, _L, _P, _P],
 }
 
 
@@ -141,6 +146,20 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def device_scalars(*values, device) -> torch.Tensor:
+    """A float32 device vector of ``values`` (floats or 0-d tensors, on any
+    device), for kernels that read their thresholds from device memory:
+    each entry is a fill or a device copy, never a blocking host copy
+    (``out[i] = 0.5`` would copy a host scalar and wait for the device)."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            out[i].copy_(v.reshape(()))
+        else:
+            out[i].fill_(float(v))
+    return out
 
 
 def check_volume(*tensors: torch.Tensor) -> None:

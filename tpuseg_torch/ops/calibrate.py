@@ -8,8 +8,9 @@ miss IoU 0.5. The fix is the threshold whose predicted foreground VOLUME
 matches the expected instance volume, which the weak annotations give
 (sum of ellipsoid volumes from box half-sizes).
 
-``threshold_for_fraction`` runs on the map's device; the other helpers are
-numpy copies of the JAX package's (that module imports JAX).
+``threshold_for_fraction`` runs on the map's device and returns a 0-d
+tensor there, with no host read; the other helpers are numpy copies of the
+JAX package's (that module imports JAX).
 """
 
 from __future__ import annotations
@@ -17,24 +18,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpuseg_torch.ops.hist import bin_counts, bin_counts_plain
+
 
 def threshold_for_fraction(prob: torch.Tensor, fraction: float,
-                           bins: int = 4096,
-                           sample_stride: int = 1) -> torch.Tensor:
+                           bins: int = 4096, sample_stride: int = 1,
+                           plain: bool = False) -> torch.Tensor:
     """Threshold t (0-d float32) such that mean(prob >= t) ~= fraction, from
     a ``bins``-bin histogram of every ``sample_stride``-th x-voxel: the
-    JAX version's arithmetic (exact integer counts, float32 fractions)."""
+    JAX version's arithmetic (exact integer counts, float32 fractions).
+    ``plain=True`` takes the histogram with H1's twin on any device."""
     prob = prob.float()
     if sample_stride > 1:
         prob = prob[..., ::sample_stride]
-    return threshold_from_counts(fg_bin_counts(prob, bins), prob.numel(),
-                                 fraction)
+    return threshold_from_counts(fg_bin_counts(prob, bins, plain),
+                                 prob.numel(), fraction)
 
 
-def fg_bin_counts(prob: torch.Tensor, bins: int = 4096) -> torch.Tensor:
-    """int64 ``bins``-bin histogram of probabilities in [0, 1]."""
-    idx = torch.clamp((prob.float() * bins).to(torch.int64), 0, bins - 1)
-    return torch.bincount(idx.reshape(-1), minlength=bins)
+def fg_bin_counts(prob: torch.Tensor, bins: int = 4096,
+                  plain: bool = False) -> torch.Tensor:
+    """int64 ``bins``-bin histogram of probabilities in [0, 1] (H1 under
+    its calibration rule on the card, ``ops/hist.py``; its twin with
+    ``plain=True``)."""
+    counts = bin_counts_plain if plain else bin_counts
+    return counts(prob.float().reshape(1, -1), bins=bins,
+                  rule="calibrate")[0]
 
 
 def threshold_from_counts(hist: torch.Tensor, n: int,

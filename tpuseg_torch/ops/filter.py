@@ -1,39 +1,53 @@
 """Instance sizes, the small-object filter and the compact relabel (port of
 ``tpuseg/ops/filter.py``).
 
-The TPU package computes the fused filter and relabel with two sorts to
-dodge slow TPU random access; here it is one ``torch.unique`` (sorted, with
-inverse and counts) and one gather, on any device. Sizes come from one
-``torch.bincount`` over the label space, which is bounded by the voxel count
-(labels are root linear indices + 1).
+Sizes come from one (N+1,) label histogram (``ops/hist.label_counts``, H3
+on the card: labels are root linear indices + 1, so they lie in 0..N for N
+voxels). The filter and the relabel are then a rank table and one gather,
+as in the JAX package's ``impl="scatter"`` schedule (its default two-sort
+schedule dodges slow TPU random access and gives the same labels). Nothing
+here reads the number of labels on the host.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpuseg_torch.ops.hist import label_counts, label_counts_plain
 from tpuseg_torch.ops.peaks import radius3
 
 
-def size_filter_and_compact(labels: torch.Tensor, min_size: int) -> torch.Tensor:
+def size_filter_and_compact(labels: torch.Tensor, min_size: int,
+                            plain: bool = False) -> torch.Tensor:
     """Drop instances smaller than ``min_size`` voxels and number the kept
-    labels 1..K, ascending in original label value; background stays 0."""
-    uniq, inverse, counts = torch.unique(labels.reshape(-1), sorted=True,
-                                         return_inverse=True,
-                                         return_counts=True)
-    keep = (uniq > 0) & (counts >= min_size)
-    rank = torch.cumsum(keep.to(torch.int64), 0)
+    labels 1..K, ascending in original label value; background stays 0.
+    On the card ``labels`` must lie in 0..N for N voxels, as the
+    watershed's root linear index + 1 does: H3's counts and the rank table
+    have N + 1 entries, and a larger label would index past them. H3's
+    twin, which CPU tensors take, also takes any larger non-negative label.
+    ``plain=True`` counts with the twin on any device (the card's check of
+    the kernel)."""
+    counts = (label_counts_plain if plain else label_counts)(labels)
+    # only labels present are ranked (H3 leaves the background's count 0),
+    # so min_size <= 0 keeps every instance and still numbers them 1..K
+    keep = (counts > 0) & (counts >= min_size)
+    rank = torch.cumsum(keep, 0, dtype=torch.int32)
     remap = torch.where(keep, rank, 0).to(labels.dtype)
-    return remap[inverse].reshape(labels.shape)
+    return _gather(remap, labels)
 
 
 def label_sizes(labels: torch.Tensor) -> torch.Tensor:
     """int32 per-voxel size of the instance the voxel belongs to (the
     background's count at label 0). ``labels`` lie in 0..N for N voxels;
     the histogram is (N+1,) int32, as in the JAX package."""
-    flat = labels.reshape(-1).to(torch.int64)
-    counts = torch.bincount(flat, minlength=flat.numel() + 1).to(torch.int32)
-    return counts[flat].reshape(labels.shape)
+    counts = label_counts(labels)
+    counts[0].copy_(labels.numel() - counts.sum(dtype=torch.int64))
+    return _gather(counts, labels)
+
+
+def _gather(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``table[labels]`` in ``labels``' shape."""
+    return table.index_select(0, labels.reshape(-1)).reshape(labels.shape)
 
 
 def size_filter(labels: torch.Tensor, min_size: int) -> torch.Tensor:

@@ -29,9 +29,11 @@ from tpuseg_torch.ops.peaks import nms_body, peak_nms, radius3
 fused_peak_nms_plain = peak_nms
 
 
-def fused_peak_nms(peak_prob: torch.Tensor, threshold: float, radius=2,
+def fused_peak_nms(peak_prob: torch.Tensor, threshold, radius=2,
                    body: str | None = None, zchunks: int = 0) -> torch.Tensor:
     """Boolean (D, H, W) seed mask of ``peak_prob`` (taken as float32).
+    ``threshold``: a float or a 0-d tensor; the kernel reads it from device
+    memory.
 
     ``body`` and ``zchunks`` are hooks for the card's checks and timings
     (see ``ops.seed.seed_chase_pass``); neither is reachable from a config."""
@@ -48,16 +50,17 @@ def fused_peak_nms(peak_prob: torch.Tensor, threshold: float, radius=2,
     seeds = torch.empty(peak.shape, dtype=torch.bool, device=peak.device)
     d, h, w = peak.shape
     lib = _build.load()
+    thr = _build.device_scalars(threshold, device=peak.device)
     if body == "tile":
         err = lib.tpuseg_peak_nms(
-            peak.data_ptr(), float(threshold), rz, ry, rx, zchunks, d, h, w,
+            peak.data_ptr(), thr.data_ptr(), rz, ry, rx, zchunks, d, h, w,
             seeds.data_ptr(), _build.stream_ptr())
     else:
         f0, f1 = torch.empty_like(peak), torch.empty_like(peak)
         cidx, i0, i1 = (torch.empty(peak.shape, dtype=torch.int32,
                                     device=peak.device) for _ in range(3))
         err = lib.tpuseg_peak_nms_chain(
-            peak.data_ptr(), float(threshold), rz, ry, rx, d, h, w,
+            peak.data_ptr(), thr.data_ptr(), rz, ry, rx, d, h, w,
             f0.data_ptr(), f1.data_ptr(), cidx.data_ptr(), i0.data_ptr(),
             i1.data_ptr(), seeds.data_ptr(), _build.stream_ptr())
     _build.check(err, f"fused_peak_nms ({body})")

@@ -5,7 +5,8 @@ versions with one contract:
 
 * ``chase_pass`` / ``flood_pass`` — the wrappers. A CUDA tensor launches the
   hand-written kernel (``csrc/resolve.cu``) or raises; a CPU tensor takes
-  the plain PyTorch twin. ``.launches`` counts passes run by a kernel.
+  the plain PyTorch twin. ``.launches`` counts the passes launched on the
+  card (the device loops below launch passes that may then not run).
 * ``chase_pass_plain`` / ``flood_pass_plain`` — the twins, on any device.
 
 A pass returns exactly what ``iters`` lockstep steps return, but the kernels
@@ -17,9 +18,18 @@ cannot be walked: its kernel keeps a few z planes of a (y, x) tile in shared
 memory and runs several steps on them per trip through device memory
 (``csrc/flood.cuh``), so a pass of 8 steps is two launches.
 
-``chase_resolve`` / ``flood_resolve`` loop over the wrappers; the
-``*_plain`` loops run the twins (``chip_smoke.py`` holds the two against each
-other on the card). Both keep the TPU version's loop structure exactly:
+``chase_resolve`` / ``flood_resolve`` are the loops. On the card they run
+on the device, as the TPU version's ``lax.while_loop`` does: one call
+(``tpuseg_chase_resolve`` / ``tpuseg_flood_resolve``) enqueues every pass
+the loop may run, and each pass reads its gate, the previous pass's count
+or flag, from device memory (``csrc/resolve.cu``), so the host reads
+nothing. ``chase_pass.launches`` / ``flood_pass.launches`` then count the
+passes enqueued. On the CPU, and in the ``*_plain`` loops on any device
+(``chip_smoke.py`` holds the two against each other on the card), the host
+reads the count or the flag after each pass. Every loop keeps its last
+call's gates as ``.last_gates``, a 1-D int32 tensor on the device it ran on
+(the slots themselves on the card), and :func:`passes_run` reads from them
+how many passes ran. All keep the TPU version's loop structure exactly:
 
 * chase: converged when no foreground zero is left, checked once before the
   first pass and after every pass, up to ``max_passes`` passes;
@@ -33,6 +43,18 @@ import torch
 
 from tpuseg_torch.ops import _build
 from tpuseg_torch.ops.neighbors import NEIGHBORS_6, linear_index, shift
+
+
+def passes_run(gates: torch.Tensor) -> int:
+    """The passes a resolve loop ran, from its ``.last_gates``: pass k ran
+    iff gates 0..k-1 are all nonzero (a host read, for checks and reports)."""
+    return int((gates != 0).to(torch.int32).cumprod(0).sum())
+
+
+def _gates(slots: list, passes: int) -> torch.Tensor:
+    """The host loops' gates: what the card's slots would hold."""
+    return torch.tensor(slots[:passes], dtype=torch.int32)
+
 
 # --------------------------------------------------------------------------
 # chase: pointer-chain resolution by direction codes
@@ -86,14 +108,17 @@ def chase_pass(values, dirs, fg_mask, iters: int = 8):
 chase_pass.launches = 0
 
 
-def _chase_loop(pass_fn, values, dirs, fg_mask, iters_per_pass, max_passes):
+def _chase_loop(pass_fn, values, dirs, fg_mask, iters_per_pass, max_passes,
+                slots=None):
+    """The chase loop with a host read after each pass. ``slots`` (a list)
+    receives the count of foreground zeros before the first pass and after
+    each pass that ran."""
+    slots = [] if slots is None else slots
     v = values
-    unresolved = bool((fg_mask & (v == 0)).any())
-    i = 0
-    while unresolved and i < max_passes:
+    slots.append(int((fg_mask & (v == 0)).sum()))
+    while slots[-1] and len(slots) <= max_passes:
         v, n = pass_fn(v, dirs, fg_mask, iters_per_pass)
-        unresolved = int(n) > 0          # one host read per pass
-        i += 1
+        slots.append(int(n))             # one host read per pass
     return v
 
 
@@ -102,16 +127,52 @@ def chase_resolve(values, dirs, fg_mask, iters_per_pass: int = 8,
     """Iterate :func:`chase_pass` until every foreground voxel is resolved
     (nonzero) or ``max_passes`` passes ran. Payloads are 0 along unresolved
     chains and flip once to the root's signed value, so "no zero left" is the
-    sound fixed-point test."""
-    return _chase_loop(chase_pass, values, dirs, fg_mask, iters_per_pass,
-                       max_passes)
+    sound fixed-point test. On the card all ``max_passes`` passes are
+    enqueued and gated on the device (module docstring)."""
+    if values.device.type == "cpu":
+        v = chase_resolve_plain(values, dirs, fg_mask, iters_per_pass,
+                                max_passes)
+        chase_resolve.last_gates = chase_resolve_plain.last_gates
+        return v
+    if iters_per_pass < 1:
+        raise ValueError(f"iters must be >= 1, got {iters_per_pass}")
+    v = values.to(torch.int32).contiguous()
+    d = dirs.to(torch.int32).contiguous()
+    fg = fg_mask.to(torch.bool).contiguous()
+    _build.check_volume(v, d, fg)
+    if max_passes < 1:
+        chase_resolve.last_gates = _gates([], 0).to(v.device)
+        return v
+    # slot k: the unresolved count after pass k; slot 0 the count before
+    flags = torch.zeros(max_passes + 1, dtype=torch.int32, device=v.device)
+    flags[0].copy_((fg & (v == 0)).sum(dtype=torch.int32))
+    b1 = torch.empty_like(v)
+    b2 = torch.empty_like(v) if max_passes > 1 else None
+    depth, h, w = v.shape
+    err = _build.load().tpuseg_chase_resolve(
+        v.data_ptr(), d.data_ptr(), fg.data_ptr(), b1.data_ptr(),
+        b2.data_ptr() if b2 is not None else None, flags.data_ptr(),
+        iters_per_pass, max_passes, depth, h, w, _build.stream_ptr())
+    _build.check(err, "chase_resolve")
+    chase_pass.launches += max_passes
+    chase_resolve.last_gates = flags[:max_passes]
+    return b1 if max_passes % 2 else b2
+
+
+chase_resolve.last_gates = None
 
 
 def chase_resolve_plain(values, dirs, fg_mask, iters_per_pass: int = 8,
                         max_passes: int = 128):
     """:func:`chase_resolve` on the plain twin, on any device."""
-    return _chase_loop(chase_pass_plain, values, dirs, fg_mask,
-                       iters_per_pass, max_passes)
+    slots = []
+    v = _chase_loop(chase_pass_plain, values, dirs, fg_mask, iters_per_pass,
+                    max_passes, slots)
+    chase_resolve_plain.last_gates = _gates(slots, max_passes)
+    return v
+
+
+chase_resolve_plain.last_gates = None
 
 
 # --------------------------------------------------------------------------
@@ -176,17 +237,18 @@ flood_pass.launches = 0
 
 
 def _flood_loop(pass_fn, seed_labels, fg_mask, potential, max_iters,
-                iters_per_pass):
+                iters_per_pass, slots=None):
+    """The flood loop with a host read after each pass. ``slots`` (a list)
+    receives 1, then each whole pass's changed flag (0 or 1)."""
+    slots = [] if slots is None else slots
     pot = torch.where(fg_mask, potential.float(), float("-inf"))
     labels = torch.where(fg_mask, seed_labels, 0).to(torch.int32)
     full, rem = divmod(max_iters, iters_per_pass)
-    changed = True
-    i = 0
-    while changed and i < full:
+    slots.append(1)
+    while slots[-1] and len(slots) <= full:
         labels, ch = pass_fn(pot, labels, iters_per_pass)
-        changed = bool(ch)               # one host read per pass
-        i += 1
-    if rem and changed:
+        slots.append(int(bool(ch)))      # one host read per pass
+    if rem and slots[-1]:
         labels, _ = pass_fn(pot, labels, rem)
     return labels
 
@@ -194,13 +256,63 @@ def _flood_loop(pass_fn, seed_labels, fg_mask, potential, max_iters,
 def flood_resolve(seed_labels, fg_mask, potential, max_iters: int,
                   iters_per_pass: int = 8):
     """Seeded lockstep flood to its (early-exiting) fixed point, capped at
-    exactly ``max_iters`` steps — ``watershed.flood_labels`` semantics."""
-    return _flood_loop(flood_pass, seed_labels, fg_mask, potential,
-                       max_iters, iters_per_pass)
+    exactly ``max_iters`` steps — ``watershed.flood_labels`` semantics. On
+    the card every pass the loop may run is enqueued and gated on the
+    device (module docstring)."""
+    if seed_labels.device.type == "cpu":
+        labels = flood_resolve_plain(seed_labels, fg_mask, potential,
+                                     max_iters, iters_per_pass)
+        flood_resolve.last_gates = flood_resolve_plain.last_gates
+        return labels
+    if iters_per_pass < 1:
+        raise ValueError(f"iters must be >= 1, got {iters_per_pass}")
+    pot = torch.where(fg_mask, potential.float(), float("-inf")).contiguous()
+    b0 = torch.where(fg_mask, seed_labels, 0).to(torch.int32).contiguous()
+    _build.check_volume(pot, b0)
+    full, rem = divmod(max_iters, iters_per_pass)
+    full = max(full, 0)
+    passes = _flood_passes(max_iters, iters_per_pass)
+    if passes == 0:
+        flood_resolve.last_gates = _gates([], 0).to(b0.device)
+        return b0
+    lib = _build.load()
+    b1 = torch.empty_like(b0)
+    tmp = (torch.empty_like(b0)
+           if max(iters_per_pass if full else 0, rem)
+           > lib.tpuseg_flood_steps_per_launch() else None)
+    # slot k: did pass k change a label; slot 0 opens the first pass
+    flags = torch.zeros(full + 2, dtype=torch.int32, device=b0.device)
+    flags[0].fill_(1)
+    depth, h, w = b0.shape
+    err = lib.tpuseg_flood_resolve(
+        pot.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+        tmp.data_ptr() if tmp is not None else None, flags.data_ptr(),
+        iters_per_pass, full, rem, depth, h, w, _build.stream_ptr())
+    _build.check(err, "flood_resolve")
+    flood_pass.launches += passes
+    flood_resolve.last_gates = flags[:passes]
+    return b1 if passes % 2 else b0
+
+
+flood_resolve.last_gates = None
+
+
+def _flood_passes(max_iters: int, iters_per_pass: int) -> int:
+    """The passes a flood of ``max_iters`` steps may run: the whole ones
+    and the remainder."""
+    full, rem = divmod(max_iters, iters_per_pass)
+    return max(full, 0) + (rem > 0)
 
 
 def flood_resolve_plain(seed_labels, fg_mask, potential, max_iters: int,
                         iters_per_pass: int = 8):
     """:func:`flood_resolve` on the plain twin, on any device."""
-    return _flood_loop(flood_pass_plain, seed_labels, fg_mask, potential,
-                       max_iters, iters_per_pass)
+    slots = []
+    labels = _flood_loop(flood_pass_plain, seed_labels, fg_mask, potential,
+                         max_iters, iters_per_pass, slots)
+    flood_resolve_plain.last_gates = _gates(slots, _flood_passes(
+        max_iters, iters_per_pass))
+    return labels
+
+
+flood_resolve_plain.last_gates = None

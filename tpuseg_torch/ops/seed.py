@@ -54,7 +54,10 @@ def seed_chase_pass(peak_prob, fg_prob, peak_threshold, fg_threshold,
                     zchunks: int = 0):
     """``(dirs, v)``: int32 direction codes and chase payloads after ``h0``
     lockstep chase steps. Both maps are taken as float32 (the TPU kernel's
-    cast point); thresholds are float32 scalars.
+    cast point); the thresholds are float32 scalars, each a float or a 0-d
+    tensor, and on the card the kernels read them from device memory (the
+    reference's traced scalars), so a threshold computed on the device is
+    never read by the host.
 
     ``body`` and ``zchunks`` are hooks for the card's checks and timings:
     ``body="chain"`` runs the chain at a radius the rule gives to the tile
@@ -79,18 +82,20 @@ def seed_chase_pass(peak_prob, fg_prob, peak_threshold, fg_threshold,
     d, h, w = peak.shape
     lib = _build.load()
     dirs, v = ivol(), ivol()
+    thrs = _build.device_scalars(peak_threshold, fg_threshold,
+                                 device=peak.device)
     if body == "tile":
         v0 = ivol()
         err = lib.tpuseg_seed_chase(
-            peak.data_ptr(), fgp.data_ptr(), float(peak_threshold),
-            float(fg_threshold), rz, ry, rx, h0, zchunks, d, h, w,
-            v0.data_ptr(), dirs.data_ptr(), v.data_ptr(), _build.stream_ptr())
+            peak.data_ptr(), fgp.data_ptr(), thrs.data_ptr(), rz, ry, rx, h0,
+            zchunks, d, h, w, v0.data_ptr(), dirs.data_ptr(), v.data_ptr(),
+            _build.stream_ptr())
     else:
         f0, f1 = torch.empty_like(peak), torch.empty_like(peak)
         cidx, i0, i1 = ivol(), ivol(), ivol()
         err = lib.tpuseg_seed_chase_chain(
-            peak.data_ptr(), fgp.data_ptr(), float(peak_threshold),
-            float(fg_threshold), rz, ry, rx, h0, d, h, w,
+            peak.data_ptr(), fgp.data_ptr(), thrs.data_ptr(), rz, ry, rx, h0,
+            d, h, w,
             f0.data_ptr(), f1.data_ptr(), cidx.data_ptr(), i0.data_ptr(),
             i1.data_ptr(), dirs.data_ptr(), v.data_ptr(), _build.stream_ptr())
     _build.check(err, f"seed_chase_pass ({body})")

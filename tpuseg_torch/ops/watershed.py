@@ -105,6 +105,18 @@ def ascent_labels(potential, fg_mask, seed_mask=None, rounds=None):
     return torch.where(fg_mask, root + 1, 0).to(torch.int32)
 
 
+def threshold_mask(prob, threshold) -> torch.Tensor:
+    """``prob >= threshold`` as the JAX package compares: a Python float is
+    weakly typed there and compares in the map's dtype; a 0-d tensor (a
+    traced scalar there, as the calibrated threshold is) compares in the
+    promoted dtype, float32 for a bf16 map, as K1 compares its maps. (Torch
+    alone would round a 0-d float32 threshold to a bf16 map's dtype.)"""
+    if isinstance(threshold, torch.Tensor):
+        dtype = torch.promote_types(prob.dtype, threshold.dtype)
+        return prob.to(dtype) >= threshold.to(dtype)
+    return prob >= threshold
+
+
 def flood_truncation_count(labels, fg_mask) -> torch.Tensor:
     """int32 count of foreground voxels the flood cap truncated: unlabeled
     fg adjacent to a labeled basin. Zero iff the flood reached its fixed
@@ -131,6 +143,10 @@ def watershed(fg_prob, peak_prob, peak_threshold: float = 0.5,
     ``resolve_impl``: "auto" and "pallas" run the kernel composition, "xla"
     the plain pointer jump of ``ascent_rounds`` rounds (module docstring);
     ``ascent_rounds`` is read by "xla" alone.
+
+    ``peak_threshold`` and ``fg_threshold``: floats or 0-d float32 tensors
+    on the maps' device (a calibrated threshold stays there: K1 and K5
+    read it from device memory).
 
     ``plain=True`` runs the plain twins on whatever device the maps are on:
     the card's check of the kernels (``chip_smoke.py``)."""
@@ -159,7 +175,7 @@ def watershed(fg_prob, peak_prob, peak_threshold: float = 0.5,
     # peak_nms is both the plain NMS of nms_impl="xla" and the kernel's twin
     nms = fused_peak_nms if nms_impl == "pallas" and not plain else peak_nms
 
-    fg_mask = fg_prob >= fg_threshold
+    fg_mask = threshold_mask(fg_prob, fg_threshold)
     radius = radius3(peak_radius)
     if resolve_impl == "xla":
         seeds = nms(peak_prob, peak_threshold, radius) & fg_mask

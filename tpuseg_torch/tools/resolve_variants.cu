@@ -6,8 +6,10 @@
 // committed choice is among them, for a side-by-side time).
 // chase: the walk over a window of `dirs` staged in shared memory as bytes
 // (core 8 x 16 x 64 with a halo of 8 on every axis), reading only the value
-// it reaches from global memory, against the committed walk through L1/L2;
-// and that walk with other thread blocks.
+// it reaches from global memory, against the walk through L1/L2 (K1's,
+// one thread a voxel); that walk with other thread blocks; and the
+// package's chase pass (blocks walking their tile down z) at other z chunks,
+// a pass that runs, an idle one and the gated loop of 128.
 #include "flood.cuh"
 
 namespace tpuseg {
@@ -121,6 +123,41 @@ extern "C" int variant_chase_pass(int variant, const int* v_in,
   chase_staged_kernel<<<grid, kStageThreads, smem, s>>>(v_in, dirs, v_out, fg,
                                                         count, iters, D, H, W);
   return cudaGetLastError();
+}
+
+// The package's chase pass (common.cuh: chase_pass_kernel) walking `zchunk`
+// planes a block; with `gate` set (to a zero in device memory) the pass is
+// idle and copies nothing.
+extern "C" int variant_chase_zchunk(int zchunk, const int* v_in,
+                                    const int* dirs, const unsigned char* fg,
+                                    int* v_out, int* count, const int* gate,
+                                    int iters, int D, int H, int W,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  return launch_chase_pass(v_in, dirs, v_out, fg, count, gate, gate, iters,
+                           D, H, W, s, zchunk);
+}
+
+// The package's gated chase loop (resolve.cu: tpuseg_chase_resolve) with
+// its passes walking `zchunk` planes a block.
+extern "C" int variant_chase_resolve_zchunk(int zchunk, const int* v_in,
+                                            const int* dirs,
+                                            const unsigned char* fg, int* b1,
+                                            int* b2, int* flags, int iters,
+                                            int max_passes, int D, int H,
+                                            int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int k = 1; k <= max_passes; ++k) {
+    const int* src = k == 1 ? v_in : (k % 2 == 0 ? b1 : b2);
+    int* dst = k % 2 == 1 ? b1 : b2;
+    const cudaError_t err = launch_chase_pass(
+        src, dirs, dst, fg, flags + k, flags + k - 1,
+        k <= 2 ? nullptr : flags + k - 2, iters, D, H, W, s, zchunk);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // Steps per launch x tile (threads) by variant.

@@ -5,7 +5,11 @@ were tried for them, on the card.
 
 Builds ``resolve_variants.cu`` (the committed kernels of ``csrc/`` and the
 variants: the flood at other steps per launch and tiles, the chase with
-other blocks and over a window of codes staged in shared memory) and, at 96x512x512 on two loads —
+other blocks and over a window of codes staged in shared memory, and the
+package's chase pass at other z chunks: a pass that runs, an idle pass
+timed alone, and the gated loop of 128 passes, on the load and on its
+result, where every pass is idle) and, at
+96x512x512 on two loads —
 the analytic maps of the 600-instance synthetic stack and the probabilities
 of the full default U-Net with seeded weights (the main path's load) — holds
 every variant's pass of 8 steps and whole resolve against the package's
@@ -34,7 +38,11 @@ from tpuseg_torch.ops import _build  # noqa: E402
 from tpuseg_torch.ops import resolve  # noqa: E402
 
 SHAPE = (96, 512, 512)
-CHASE_VARIANTS = {0: "walk through L1/L2, block 32x4x1 (committed)",
+# planes a block of the package's chase pass walks (24: its rule at SHAPE on
+# an H100, 4 chunks of 2048 tiles, about four waves; 1: a block a tile, the
+# grid of K1's walk)
+CHASE_ZCHUNKS = (1, 4, 12, 24, 48, 96)
+CHASE_VARIANTS = {0: "walk through L1/L2, block 32x4x1 (K1's walk)",
                   1: "walk over a staged byte window, core 8x16x64, halo 8",
                   2: "walk, block 128x1x1", 3: "walk, block 32x8x1",
                   4: "walk, block 32x4x4", 5: "walk, block 32x8x4",
@@ -73,6 +81,9 @@ def build(tmp: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     cdll.variant_chase_pass.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
     cdll.variant_flood_pass.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+    cdll.variant_chase_zchunk.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+    cdll.variant_chase_resolve_zchunk.argtypes = [i, p, p, p, p, p, p, i, i,
+                                                  i, i, i, p]
     return cdll
 
 
@@ -145,6 +156,55 @@ def main() -> int:
             want_pass, _ = resolve.chase_pass(v, dirs, fgm, 8)
             want = resolve.chase_resolve(v, dirs, fgm)
             print(f"chase on the {load}, {SHAPE}:")
+            print(f"  {'the package (chase_pass_kernel: tiles down z)':<55} "
+                  f"pass of 8 "
+                  f"{cuda_ms(lambda: resolve.chase_pass(v, dirs, fgm, 8), 10):7.3f}"
+                  f" ms, resolve (gated) "
+                  f"{cuda_ms(lambda: resolve.chase_resolve(v, dirs, fgm), 3):8.3f}"
+                  " ms")
+            zero = torch.zeros((), dtype=torch.int32, device=v.device)
+            out = torch.empty_like(v)
+            count = torch.empty((), dtype=torch.int32, device=v.device)
+
+            def zchunk_pass(zc, gate):
+                d, h, w = v.shape
+                _build.check(lib.variant_chase_zchunk(
+                    zc, v.data_ptr(), dirs.data_ptr(), fgm.data_ptr(),
+                    out.data_ptr(), count.data_ptr(), gate, 8, d, h, w,
+                    _build.stream_ptr()), "variant_chase_zchunk")
+                return out
+
+            b1, b2 = torch.empty_like(v), torch.empty_like(v)
+            flags = torch.zeros(129, dtype=torch.int32, device=v.device)
+
+            def zchunk_resolve(zc, vin):
+                # resolve.chase_resolve's buffers and slots, 128 passes
+                flags.zero_()
+                flags[0].copy_((fgm & (vin == 0)).sum(dtype=torch.int32))
+                d, h, w = v.shape
+                _build.check(lib.variant_chase_resolve_zchunk(
+                    zc, vin.data_ptr(), dirs.data_ptr(), fgm.data_ptr(),
+                    b1.data_ptr(), b2.data_ptr(), flags.data_ptr(), 8, 128,
+                    d, h, w, _build.stream_ptr()), "variant_chase_resolve")
+                return b2
+
+            ran = resolve.passes_run(resolve.chase_resolve.last_gates)
+            for zc in CHASE_ZCHUNKS:
+                if not (torch.equal(zchunk_pass(zc, None), want_pass)
+                        and torch.equal(zchunk_resolve(zc, v), want)
+                        and torch.equal(zchunk_resolve(zc, want), want)):
+                    raise SystemExit(f"chase pass at zchunk {zc} is wrong")
+                blocks = (-(-SHAPE[2] // 32) * -(-SHAPE[1] // 4)
+                          * -(-SHAPE[0] // zc))
+                print(f"  {f'the package, {zc} planes a block ({blocks} blocks)':<55}"
+                      f" pass of 8 "
+                      f"{cuda_ms(lambda: zchunk_pass(zc, None), 10):7.3f} ms, "
+                      f"idle pass "
+                      f"{1e3 * cuda_ms(lambda: zchunk_pass(zc, zero.data_ptr()), 100):7.2f} us; "
+                      f"gated resolve ({ran} run) "
+                      f"{cuda_ms(lambda: zchunk_resolve(zc, v), 5):7.3f} ms, "
+                      f"all 128 idle "
+                      f"{cuda_ms(lambda: zchunk_resolve(zc, want), 5):7.3f} ms")
             for variant, what in CHASE_VARIANTS.items():
                 fn = chase_variant(lib, variant)
                 got = resolve._chase_loop(fn, v, dirs, fgm, 8, 128)
