@@ -6,9 +6,9 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the card: name, count, power limit (CUDA missing -> error);
 2. build the hand-written kernels (K1 seed, K2 chase, K3 flood, K4 fused
-   eval ConvBlock, K5 peak NMS, K6 training conv, and the histograms H1-H3
-   of one-volume inference) from ``tpuseg_torch/csrc`` and print nvcc's
-   per-kernel register report;
+   eval ConvBlock, K5 peak NMS, K6 training conv, the histograms H1-H3
+   of one-volume inference and the union-find closure U1) from
+   ``tpuseg_torch/csrc`` and print nvcc's per-kernel register report;
 3. each kernel against its plain PyTorch twin on the card, elementwise, at
    the main-path shape 96x512x512 (analytic maps of a 600-instance
    synthetic stack) and at a ragged shape; at both shapes also single
@@ -213,12 +213,36 @@ Phases, in order; any failure raises and exits non-zero:
     device against the same pass kernels in a host-read loop, with the
     chase's idle pass (128 idle passes against 2).
 
+19. (run after phase 9, with its checkpoint) the saddle merge, the
+    diagnostics and the sharded path with no host read: (a) U1
+    (``ops/closure.union_closure``) against its twin elementwise on the
+    saddle-merge edges of the seeded-weights stack (merge 0.8), random
+    graphs of 10^3-10^6 edges, a 2^20-long path in bit-reversed order, a
+    star of 2^20 leaves and a table of sentinels only, each timed beside
+    the twin and its bound; (b) ``make_infer_fn`` with merge 0.8 and
+    ``with_diagnostics=True`` on the stack (fused apply, seeded weights)
+    and calibrated c3 (phase 9's net) inside
+    ``torch.cuda.set_sync_debug_mode("error")`` after one warm call:
+    labels, the truncation count and the merge's dropped counts equal the
+    ``plain=True`` post-processing of the same sweep, one U1 launch a
+    call; (c) ``make_sharded_infer_fn``'s ``infer(shards)`` inside the
+    mode, shards on ``cuda:0``, meshes z2,y2 and z2, calibrated or not,
+    merge 0 or 0.8: AnalyticNet in float32 equal to the one-shot labels
+    (as [15a] holds them) and to ``plain=True``, phase 9's net under c3
+    (module apply) equal to ``plain=True``, U1 launched once a call and
+    once more with the merge; a z2 call with ``shard_max_labels=8`` prints
+    its overflow after the labels, in the reference's words; (d) warm
+    times: the post stage with the merge off and at 0.8 on the same
+    logits, and calibrated c3's one-shot call beside its ``--shard z2,y2``
+    call (host enqueue and wall).
+
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-18 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-19 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
-processes of phase 16 and on the touching fixtures of phase 17, K2's and
+processes of phase 16 and on the touching fixtures of phase 17 (U1's: on
+the merge-on and sharded calls of phase 19 (b) and (c)), K2's and
 K3's passes run on the main path beside their launches, and its bound:
 the
 larger of its bytes over the card's memory rate and its operations over
@@ -278,6 +302,9 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
                     "tpuseg/data/normalize.py:59"),
     "label_counts": ("tpuseg_torch/csrc/hist.cu",
                      "tpuseg/ops/filter.py:130"),
+    # U1 neither: the reference's XLA closure (hook and jump rounds)
+    "union_closure": ("tpuseg_torch/csrc/closure.cu",
+                      "tpuseg/parallel/reconcile.py:41"),
 }
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
@@ -353,6 +380,12 @@ C5_JAX = {"touch60_snr20": (0.98, 0.9975, None),
           "touch70_gradient": (0.9702, 0.9926, None),
           "touch65_aniso035": (0.8801, 0.9541, 0.935)}
 TOUCHING_KERNELS = INFER_KERNELS + ("fused_convblock",)
+# phase 19: U1 on the merge edges at merge 0.8 (phase 14's and 15's ratio),
+# on random graphs of 10^3-10^6 edges, a 2^20-long path and a star
+U1_MERGE_RATIO = 0.8
+U1_RANDOM_EDGES = (10 ** 3, 10 ** 4, 10 ** 5, 10 ** 6)
+U1_PATH_BITS = 20
+SENT32 = 2 ** 31 - 1                    # an unused slot of the int32 tables
 RF_PROBE = 128                          # > 2 x the 4-level net's radius (~53)
 VARIANT_STEPS = 2                       # (g): cli.train steps of the variant
 
@@ -3976,6 +4009,321 @@ def phase_one_program(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
                      "chase_passes_c5": fixture_passes}
 
 
+def u1_inputs(seeded, cfg, vol):
+    """Phase 19 (a)'s inputs of U1, by name: the saddle-merge edges of the
+    seeded-weights stack (merge 0.8, the main path's load), random graphs
+    of 10^3-10^6 edges over half as many values (a tenth of the rows hold
+    a 0), a 2^20-long path in bit-reversed order with its edges shuffled,
+    a star of 2^20 leaves and a table of sentinels only."""
+    from tpuseg_torch.ops import watershed
+    from tpuseg_torch.ops.merge import saddle_merge_edges
+
+    pp = cfg.postproc
+    fg, pk = _probabilities(seeded, cfg, vol)
+    labels = watershed(fg, pk, peak_threshold=pp.peak_threshold,
+                       fg_threshold=pp.fg_threshold, peak_radius=pp.nms_radius)
+    u, v, dropped = saddle_merge_edges(labels, pk, U1_MERGE_RATIO,
+                                       pp.merge_max_pairs)
+    print(f"[19] (a) the stack's merge edges: {int((u != SENT32).sum())} "
+          f"passing of {u.numel()} slots, dropped {dropped.tolist()}")
+    out = {"merge edges, seeded weights": (u, v)}
+    del fg, pk, labels
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for e in U1_RANDOM_EDGES:
+        u, v = (torch.randint(1, e // 2 + 1, (e,), device="cuda",
+                              generator=gen, dtype=torch.int32)
+                for _ in range(2))
+        u[::10] = 0
+        out[f"random graph, {e} edges"] = (u, v)
+    bits = U1_PATH_BITS
+    idx = torch.arange(1 << bits, device="cuda")
+    rev = torch.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    order = (rev + 1).to(torch.int32)
+    perm = torch.randperm((1 << bits) - 1, device="cuda", generator=gen)
+    out[f"path of 2^{bits} in bit-reversed order"] = (
+        order[:-1][perm].contiguous(), order[1:][perm].contiguous())
+    leaves = torch.arange(2, (1 << bits) + 2, device="cuda",
+                          dtype=torch.int32)
+    out[f"star of 2^{bits} leaves"] = (torch.ones_like(leaves), leaves)
+    sent = torch.full((1 << bits,), SENT32, device="cuda", dtype=torch.int32)
+    out["sentinels only"] = (sent, sent.clone())
+    return out
+
+
+def phase_union_closure(inputs) -> dict:
+    """(a) U1 against its twin, elementwise (keys and reps), on every input
+    of ``u1_inputs``; the time of each beside the twin's and the bound
+    (reading u and v once, writing keys and reps once). Returns the
+    kernels' record of U1 at the merge edges, the main path's shape."""
+    from tpuseg_torch.ops.closure import union_closure, union_closure_plain
+
+    rec = None
+    for name, (u, v) in inputs.items():
+        keys, reps = union_closure(u, v)
+        pk, pr = union_closure_plain(u, v)
+        if not (torch.equal(keys, pk) and torch.equal(reps, pr)):
+            raise AssertionError(f"[19] (a) U1 != its twin on {name}: "
+                                 f"{int((reps != pr).sum())} slots differ")
+        k = u.element_size()
+        b = bound(2 * u.numel() * k + 2 * keys.numel() * k,
+                  2 * keys.numel(), F32_FLOPS)
+        ms = cuda_ms(lambda: union_closure(u, v), 10)
+        plain = cuda_ms(lambda: union_closure_plain(u, v), 2)
+        groups = int(torch.unique(reps[keys != SENT32]).numel())
+        print(f"[19] (a) U1 on {name}: == twin ({u.numel()} edges, "
+              f"{groups} groups); {ms:.4f} ms, twin {plain:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        if rec is None:
+            rec = {"max_abs_err": max_abs_err(reps, pr), "ms": ms,
+                   "plain_ms": plain, "library_ms": None, **b}
+    return rec
+
+
+def phase_one_program_merge(seeded, model, vol, cfg, c3, acc: dict) -> dict:
+    """(b) ``make_infer_fn`` with merge 0.8 and diagnostics, inside
+    ``set_sync_debug_mode("error")`` after one warm call, on the stack
+    (fused apply, seeded weights) and calibrated c3 (phase 9's): labels,
+    the truncation count and the merge's dropped counts equal the
+    ``plain=True`` post-processing of the same sweep, run outside the
+    mode. U1's launches into ``acc``. Returns the calls' host enqueue and
+    wall ms."""
+    from tpuseg_torch.infer import make_infer_fn, make_infer_stages
+    from tpuseg_torch.ops.merge import saddle_merge
+    from tpuseg_torch.utils import hard_sync
+
+    merge = {"postproc.merge_saddle_ratio": U1_MERGE_RATIO}
+    walls = {}
+    for tag, net, c in (("fused apply, seeded weights", seeded,
+                         cfg.override(**{"infer.apply_impl": "fused"},
+                                      **merge)),
+                        ("calibrated c3", model, c3.override(**merge))):
+        infer = make_infer_fn(net, c, with_diagnostics=True)
+        hard_sync(infer(vol)[0])                    # warm
+        _reset_launches()
+        t0 = time.perf_counter()
+        got, diag = no_host_reads(lambda: infer(vol))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls[tag] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0))
+        _add_launches(acc)
+        n_u1 = _launches()["union_closure"]
+        dropped = saddle_merge.last_dropped
+        if diag["flood_truncated"].device.type != "cuda" or \
+                dropped.device.type != "cuda":
+            raise AssertionError("[19] (b) the counts left the card")
+        _, stage_net, _ = make_infer_stages(net, c)
+        want, wdiag = make_infer_stages(net, c, with_diagnostics=True,
+                                        plain=True)[2](stage_net(vol))
+        same = (torch.equal(got, want)
+                and int(diag["flood_truncated"])
+                == int(wdiag["flood_truncated"])
+                and dropped.tolist() == saddle_merge.last_dropped.tolist())
+        line = (f"[19] (b) make_infer_fn, {tag}, merge {U1_MERGE_RATIO}, "
+                f"with diagnostics: no host read, {int(got.max())} "
+                f"instances, truncated {int(diag['flood_truncated'])}, "
+                f"dropped {dropped.tolist()}; U1 launches {n_u1}; host "
+                f"enqueue {walls[tag][0]:.1f} ms, wall {walls[tag][1]:.1f} ms")
+        if not same or n_u1 != 1:
+            raise AssertionError(line + f"; labels or counts != the twins' "
+                                 f"({int((got != want).sum())} voxels)")
+        print(line + "; labels and counts == the twins'", flush=True)
+    return walls
+
+
+def _sharded_no_read(infer, shards, mesh):
+    """``infer(shards)`` inside the sync debug mode, then the labels
+    gathered to the host (``unshard``, the one read) and the call's
+    counts printed after them (``report_sharded_counts``): ``(labels,
+    printed)``."""
+    import contextlib
+    import io
+
+    from tpuseg_torch.infer import unshard
+    from tpuseg_torch.infer.sharded import report_sharded_counts
+
+    out = no_host_reads(lambda: infer(shards))
+    labels = unshard(out, mesh)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report_sharded_counts(infer)
+    return labels, buf.getvalue()
+
+
+def phase_sharded_no_read(sv, model, c3, acc: dict) -> None:
+    """(c) ``make_sharded_infer_fn``'s ``infer(shards)`` inside the sync
+    debug mode, every shard on ``cuda:0``, meshes z2,y2 and z2, calibrated
+    or not, merge 0 or 0.8, after one warm call a net and mesh: AnalyticNet
+    in float32 on the pre-normalized stack equal to the one-shot
+    ``make_infer_fn`` (as [15a] holds them) and to ``plain=True``; phase
+    9's net under calibrated c3 (uncalibrated: ``fg_target_fraction`` 0)
+    equal to ``plain=True`` (with the module apply: the fused apply's twin
+    rounds bf16 otherwise, phase 12); then a z2 call
+    with ``shard_max_labels=8``, whose overflow prints after the labels in
+    the reference's words. U1's launches into ``acc``."""
+    import dataclasses
+
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.data.normalize import histogram_percentile_normalize
+    from tpuseg_torch.infer import (make_infer_fn, make_sharded_infer_fn,
+                                    shard_volume)
+    from tpuseg_torch.ops.calibrate import expected_fg_fraction
+    from tpuseg_torch.parallel.reconcile import SHARD_OVERFLOW
+    from tpuseg_torch.utils import hard_sync
+
+    analytic = AnalyticNet().cuda()
+    base = Config(infer=InferConfig(compute_dtype="float32"))
+    v = histogram_percentile_normalize(
+        torch.from_numpy(sv.image)[None].cuda())[0].cpu().numpy()
+    frac = expected_fg_fraction(sv.half_sizes, sv.image.size)
+    trained = c3.override(**{"infer.apply_impl": "flax"})
+    legs = (("AnalyticNet", analytic, v, False, base,
+             {"fg_target_fraction": frac}),
+            ("c3", model, sv.image, True, trained,
+             {"fg_target_fraction": trained.postproc.fg_target_fraction}))
+    for net_tag, net, vol, norm, cfg0, cal in legs:
+        for name, shape in (("z2,y2", (2, 2)), ("z2", (2,))):
+            mesh = _card_mesh(shape)
+            shards = shard_volume(vol, mesh)
+            for k, (ratio, fraction) in enumerate(
+                    [(U1_MERGE_RATIO, cal["fg_target_fraction"]),
+                     (0.0, 0.0), (0.0, cal["fg_target_fraction"]),
+                     (U1_MERGE_RATIO, 0.0)]):
+                cfg = dataclasses.replace(cfg0, postproc=dataclasses.replace(
+                    cfg0.postproc, merge_saddle_ratio=ratio,
+                    fg_target_fraction=fraction))
+                infer = make_sharded_infer_fn(net, cfg, mesh, normalize=norm)
+                if k == 0:
+                    hard_sync(infer(shards))        # warm: a net and mesh
+                _reset_launches()
+                got, printed = _sharded_no_read(infer, shards, mesh)
+                _add_launches(acc)
+                n_u1 = _launches()["union_closure"]
+                twin, _, _ = _sharded(net, cfg, mesh, vol, normalize=norm,
+                                      plain=True)
+                tag = (f"{net_tag}, mesh {name}, "
+                       f"{'calibrated' if fraction else 'uncalibrated'}, "
+                       f"merge {ratio}")
+                bad = [] if np.array_equal(got, twin) else ["plain=True"]
+                if net_tag == "AnalyticNet":
+                    want = make_infer_fn(net, cfg, normalize=False)(
+                        torch.from_numpy(vol).cuda()).cpu().numpy()
+                    if not np.array_equal(got, want):
+                        bad.append("one-shot")
+                if bad or n_u1 != 1 + (ratio > 0) or printed:
+                    raise AssertionError(
+                        f"[19] (c) {tag}: labels != {bad}; U1 launches "
+                        f"{n_u1}; printed {printed!r}")
+                print(f"[19] (c) {tag}: no host read, {int(got.max())} "
+                      f"instances == plain=True"
+                      + (" == one-shot" if net_tag == "AnalyticNet" else "")
+                      + f"; U1 launches {n_u1}", flush=True)
+            del shards
+    mesh = _card_mesh((2,))
+    cfg = base.override(**{"infer.shard_max_labels": 8})
+    infer = make_sharded_infer_fn(analytic, cfg, mesh, normalize=False)
+    shards = shard_volume(v, mesh)
+    hard_sync(infer(shards))
+    got, printed = _sharded_no_read(infer, shards, mesh)
+    c = int(infer.last_overflow)
+    want = SHARD_OVERFLOW.format(c=c, cap=8)
+    if c <= 8 or printed.strip() != want:
+        raise AssertionError(f"[19] (c) shard_max_labels=8: printed "
+                             f"{printed!r}, count {c}")
+    print(f"[19] (c) z2, shard_max_labels=8: no host read, "
+          f"{int(got.max())} instances kept; printed after the labels: "
+          f"{printed.strip()}")
+
+
+def phase_merge_times(seeded, model, vol, cfg, c3) -> dict:
+    """(d) warm times, in turns: the post stage with the merge off and at
+    0.8 on the same logits (the seeded weights' fused sweep, and c3's), and
+    calibrated c3 (phase 9's net, fused) through ``make_infer_fn`` beside
+    ``make_sharded_infer_fn`` on z2,y2: host enqueue and wall ms."""
+    from tpuseg_torch.infer import (make_infer_fn, make_infer_stages,
+                                    make_sharded_infer_fn, shard_volume)
+    from tpuseg_torch.utils import hard_sync
+
+    post = {}
+    for tag, net, c in (("seeded weights", seeded,
+                         cfg.override(**{"infer.apply_impl": "fused"})),
+                        ("calibrated c3", model, c3)):
+        logits = make_infer_stages(net, c)[1](vol)
+        stages = {r: make_infer_stages(net, c.override(
+            **{"postproc.merge_saddle_ratio": r}))[2]
+            for r in (0.0, U1_MERGE_RATIO)}
+        runs = {r: [] for r in stages}
+        for r in (0.0, U1_MERGE_RATIO, U1_MERGE_RATIO, 0.0):
+            hard_sync(stages[r](logits))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stages[r](logits)
+            torch.cuda.synchronize()
+            runs[r].append(1e3 * (time.perf_counter() - t0))
+        post[tag] = runs
+        print(f"[19] (d) post ms, {tag}: merge off "
+              f"{', '.join(f'{t:.2f}' for t in runs[0.0])}; merge "
+              f"{U1_MERGE_RATIO} "
+              f"{', '.join(f'{t:.2f}' for t in runs[U1_MERGE_RATIO])}")
+        del logits
+    one = make_infer_fn(model, c3)
+    mesh = _card_mesh((2, 2))
+    shard = make_sharded_infer_fn(model, c3, mesh)
+    shards = shard_volume(vol.cpu().numpy(), mesh)
+    hard_sync(one(vol))
+    hard_sync(shard(shards))
+    calls = {"one-shot": [], "--shard z2,y2": []}
+    for tag in ("one-shot", "--shard z2,y2", "--shard z2,y2", "one-shot"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tag == "one-shot":
+            one(vol)
+        else:
+            shard(shards)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        calls[tag].append((1e3 * (t1 - t0),
+                           1e3 * (time.perf_counter() - t0)))
+    print("[19] (d) calibrated c3, fused: " + "; ".join(
+        f"{tag}: host enqueue / wall "
+        + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in r) + " ms"
+        for tag, r in calls.items()))
+    return {"post_ms": post, "calls_ms": calls}
+
+
+def phase_device_merge(sv, ckpt_dir: str, ann_path: str, tmp: str):
+    """Phase 19: the saddle merge, the diagnostics and the sharded path
+    with no host read. Returns U1's record and its launches on the
+    phase's main-path calls ((b) and (c))."""
+    from tpuseg_torch.ckpt import load_pth
+    from tpuseg_torch.cli.infer import calibrated
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.models import build_model
+
+    cfg = Config()
+    ckpt = os.path.join(tmp, "seeded19.pth")
+    write_seeded_checkpoint(ckpt, cfg.model)
+    seeded = build_model(cfg.model)
+    seeded.load_state_dict(load_pth(ckpt))
+    seeded.cuda()
+    vol = torch.from_numpy(sv.image).cuda()
+    rec = phase_union_closure(u1_inputs(seeded, cfg, vol))
+    c3 = Config().override(**C3_SETS)
+    model = trained_model(ckpt_dir, c3)
+    c3 = calibrated(c3, ann_path, vol.numel())
+    acc = {}
+    phase_one_program_merge(seeded, model, vol, cfg, c3, acc)
+    phase_sharded_no_read(sv, model, c3, acc)
+    if not acc.get("union_closure"):
+        raise AssertionError("[19] the merge and sharded calls never "
+                             "launched U1")
+    times = phase_merge_times(seeded, model, vol, cfg, c3)
+    del seeded, model, vol
+    torch.cuda.empty_cache()
+    return rec, acc["union_closure"], times
+
+
 def _timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3999,8 +4347,8 @@ def main(argv=None):
     only = {int(p) for p in args.phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if only & {13, 14, 15, 16, 17, 18}:
-        only.add(9)             # phases 13-18 infer with phase 9's checkpoint
+    if only & {13, 14, 15, 16, 17, 18, 19}:
+        only.add(9)             # phases 13-19 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -4059,6 +4407,10 @@ def main(argv=None):
                                       trained[0], trained[2], c5, tmp)
                 kernels.update(hist_recs)
             del c5
+            if want(19):
+                (kernels["union_closure"], launches["union_closure"],
+                 _) = _timed("phase 19", phase_device_merge, sv, trained[0],
+                             trained[2], tmp)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):

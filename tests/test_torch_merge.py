@@ -3,8 +3,14 @@
 package's watershed output on synthetic stacks (analytic maps), and random
 label volumes. Edges as sets per axis, the table's entries, the merged
 labels elementwise, and the ``max_pairs`` cap (same pairs dropped, a
-warning)."""
+warning). The port's edges come in the reference's fixed slot layout
+(``SENT`` in unused slots) with a dropped count: the sets read the used
+slots, and the layout and the count are held to the reference's too."""
 
+import re
+import warnings
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,6 +69,11 @@ def case(request):
     return (_watershed_case if kind == "watershed" else _random_case)(seed)
 
 
+def _used(lo, hi):
+    """The edges of the used slots, as a set of pairs."""
+    return {(a, b) for a, b in zip(lo.tolist(), hi.tolist()) if a != SENT}
+
+
 def _ref_axis_sets(lab, pk, ratio, max_pairs):
     el, eh = (np.asarray(a) for a in ref_edges(
         jnp.asarray(lab), jnp.asarray(pk), ratio, max_pairs=max_pairs))
@@ -78,11 +89,12 @@ def test_edges_per_axis_equal_reference(case, ratio):
     want = _ref_axis_sets(lab, pk, ratio, MAX_PAIRS)
     lab_t, pk_t = torch.from_numpy(lab), torch.from_numpy(pk)
     for axis in range(3):
-        lo, hi = saddle_merge_axis_edges(lab_t, pk_t, ratio, axis, MAX_PAIRS)
+        lo, hi, _ = saddle_merge_axis_edges(lab_t, pk_t, ratio, axis,
+                                            MAX_PAIRS)
         assert lo.dtype == torch.int32
-        assert set(zip(lo.tolist(), hi.tolist())) == want[axis]
-    e_lo, e_hi = saddle_merge_edges(lab_t, pk_t, ratio, MAX_PAIRS)
-    assert set(zip(e_lo.tolist(), e_hi.tolist())) == set().union(*want)
+        assert _used(lo, hi) == want[axis]
+    e_lo, e_hi, _ = saddle_merge_edges(lab_t, pk_t, ratio, MAX_PAIRS)
+    assert _used(e_lo, e_hi) == set().union(*want)
     if ratio == 0.0:
         assert sum(map(len, want)) > 0
 
@@ -98,8 +110,10 @@ def test_table_and_merged_labels_equal_reference(case, ratio):
     want = {int(keys[i]): int(roots[i]) for i in first if keys[i] != SENT}
     got_k, got_r = saddle_merge_table(torch.from_numpy(lab),
                                       torch.from_numpy(pk), ratio, MAX_PAIRS)
-    assert dict(zip(got_k.tolist(), got_r.tolist())) == want
-    assert got_k.tolist() == sorted(want)
+    got_first = np.unique(got_k.numpy(), return_index=True)[1]
+    assert {int(got_k[i]): int(got_r[i]) for i in got_first
+            if got_k[i] != SENT} == want
+    assert [int(k) for k in got_k[got_first] if k != SENT] == sorted(want)
     got = saddle_merge(torch.from_numpy(lab), torch.from_numpy(pk), ratio,
                        MAX_PAIRS)
     assert got.dtype == torch.int32
@@ -124,10 +138,10 @@ def test_cap_drops_the_same_pairs_and_warns(max_pairs):
     for axis in range(3):
         with pytest.warns(UserWarning, match=f"on axis {axis} exceed "
                                              f"max_pairs={max_pairs}"):
-            lo, hi = saddle_merge_axis_edges(lab_t, pk_t, 0.0, axis,
-                                             max_pairs)
+            lo, hi, _ = saddle_merge_axis_edges(lab_t, pk_t, 0.0, axis,
+                                                max_pairs)
         assert len(lo) == max_pairs
-        assert set(zip(lo.tolist(), hi.tolist())) == want[axis]
+        assert _used(lo, hi) == want[axis]
     np.testing.assert_array_equal(
         saddle_merge(lab_t, pk_t, 0.5, max_pairs).numpy(),
         np.asarray(ref_saddle_merge(jnp.asarray(lab), jnp.asarray(pk), 0.5,
@@ -153,9 +167,77 @@ def test_no_contact_no_edges():
     lab[1:3, 1:3, 1:4] = 22
     lab[1:3, 1:3, 10:13] = 27
     pk = np.ones(lab.shape, np.float32)
-    e_lo, _ = saddle_merge_edges(torch.from_numpy(lab), torch.from_numpy(pk),
-                                 0.0)
-    assert e_lo.numel() == 0
+    e_lo, _, _ = saddle_merge_edges(torch.from_numpy(lab),
+                                    torch.from_numpy(pk), 0.0)
+    assert (e_lo == SENT).all()
     np.testing.assert_array_equal(
         saddle_merge(torch.from_numpy(lab), torch.from_numpy(pk), 0.0).numpy(),
         lab)
+
+
+def _n_pairs(lab, axis):
+    """Distinct adjacent label pairs across faces along ``axis`` (numpy)."""
+    n = lab.shape[axis]
+    a = np.take(lab, range(n - 1), axis).ravel()
+    b = np.take(lab, range(1, n), axis).ravel()
+    face = (a > 0) & (b > 0) & (a != b)
+    pairs = np.stack([np.minimum(a, b)[face], np.maximum(a, b)[face]])
+    return np.unique(pairs, axis=1).shape[1]
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.8])
+def test_edges_in_the_reference_slot_layout(case, ratio):
+    """Slot for slot: the i-th distinct pair of each axis in slot i when it
+    passes, ``SENT`` elsewhere, axis 0's slots first; each axis's dropped
+    count is its distinct pairs past ``max_pairs``."""
+    lab, pk = case
+    want = [np.asarray(a) for a in ref_edges(
+        jnp.asarray(lab), jnp.asarray(pk), ratio, max_pairs=MAX_PAIRS)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        e_lo, e_hi, dropped = saddle_merge_edges(
+            torch.from_numpy(lab), torch.from_numpy(pk), ratio, MAX_PAIRS)
+    np.testing.assert_array_equal(e_lo.numpy(), want[0])
+    np.testing.assert_array_equal(e_hi.numpy(), want[1])
+    assert dropped.dtype == torch.int32
+    assert dropped.tolist() == [max(_n_pairs(lab, a) - MAX_PAIRS, 0)
+                                for a in range(3)]
+
+
+@pytest.mark.parametrize("max_pairs", [3, 400])
+def test_dropped_count_equals_what_cond_print_reports(max_pairs, capsys):
+    """The reference reports each overflowing axis's distinct pair count
+    (``cond_print``); the port's dropped count is that count less
+    ``max_pairs``, 0 where the reference prints nothing, and its slots
+    equal the reference's."""
+    lab, pk = _random_case(3)
+    want = [np.asarray(a) for a in ref_edges(
+        jnp.asarray(lab), jnp.asarray(pk), 0.5, max_pairs=max_pairs)]
+    jax.effects_barrier()
+    reported = {int(a): int(n) for n, a in re.findall(
+        r"saddle merge: (\d+) distinct adjacent label pairs on axis (\d)",
+        capsys.readouterr().out)}
+    assert (max_pairs == 3) == (sorted(reported) == [0, 1, 2])
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        e_lo, e_hi, dropped = saddle_merge_edges(
+            torch.from_numpy(lab), torch.from_numpy(pk), 0.5, max_pairs)
+    assert dropped.tolist() == [reported.get(a, max_pairs) - max_pairs
+                                for a in range(3)]
+    assert len(log) == len(reported)
+    np.testing.assert_array_equal(e_lo.numpy(), want[0])
+    np.testing.assert_array_equal(e_hi.numpy(), want[1])
+
+
+def test_merge_on_meta_has_fixed_shapes():
+    """Every shape is fixed: the edges, the table and the merged labels
+    come out on the meta device, where a host read or a data-dependent
+    shape (``unique``, ``nonzero``, boolean indexing) raises."""
+    lab = torch.empty((6, 10, 12), dtype=torch.int32, device="meta")
+    pk = torch.empty((6, 10, 12), device="meta")
+    e_lo, e_hi, dropped = saddle_merge_edges(lab, pk, 0.5, MAX_PAIRS)
+    assert e_lo.shape == e_hi.shape == (3 * MAX_PAIRS,)
+    assert dropped.shape == (3,)
+    keys, roots = saddle_merge_table(lab, pk, 0.5, MAX_PAIRS)
+    assert keys.shape == roots.shape == (6 * MAX_PAIRS,)
+    assert saddle_merge(lab, pk, 0.5, MAX_PAIRS).shape == lab.shape

@@ -242,3 +242,39 @@ def test_fused_and_staged_programs_give_identical_labels(volume,
         out = [o[0] for o in out]
     assert int(out[0].max()) >= 5
     assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("max_pairs", [1024, 1])
+def test_merge_and_diagnostics_counts_stay_tensors(max_pairs):
+    """Merge and diagnostics together: labels and the truncation count
+    equal the JAX pipeline's; the truncation count is a 0-d int32 tensor
+    on the volume's device, as the reference returns it, and the merge's
+    (3,) dropped counts stay on ``saddle_merge.last_dropped`` (a cap of 1
+    pair drops some, and the CPU warns at once)."""
+    import warnings
+
+    from tpuseg_torch.ops.merge import saddle_merge
+
+    image = synthesize_volume(shape=(16, 32, 128), num_instances=10,
+                              radius_range=(3.0, 5.0), noise=0.08,
+                              seed=2).image
+    cfg = dataclasses.replace(_cfg(), postproc=dataclasses.replace(
+        _cfg().postproc, merge_saddle_ratio=0.5, nms_radius=1, min_size=1,
+        merge_max_pairs=max_pairs))
+    want, wdiag = ref_make_infer_fn(RefAnalyticNet(), cfg,
+                                    with_diagnostics=True)(
+        {"params": {}}, jnp.asarray(image))
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        got, diag = make_infer_fn(AnalyticNet(), _port_cfg(cfg),
+                                  with_diagnostics=True)(
+            torch.from_numpy(image))
+    n = diag["flood_truncated"]
+    assert isinstance(n, torch.Tensor) and n.dim() == 0
+    assert n.dtype == torch.int32 and int(n) == int(wdiag["flood_truncated"])
+    dropped = saddle_merge.last_dropped
+    assert dropped.shape == (3,) and dropped.dtype == torch.int32
+    assert (dropped.sum() > 0) == (max_pairs == 1)
+    assert sum("saddle merge" in str(w.message) for w in log) == int(
+        (dropped > 0).sum())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -6,7 +6,10 @@ devices of ``tests/conftest.py``, the port's on lists of CPU tensors.
 The JAX package names table entries by an int32 (z plane, in-plane) pair;
 the port by one int64 coordinate ``hi * PLANE + lo``, which orders the
 same. Random cases hold cap overflow (more distinct ids than the table
-takes), the global size filter and the closure over cross-shard edges."""
+takes), the global size filter and the closure over cross-shard edges.
+Tables and edge lists have the reference's fixed sizes (unused table slots
+hold 2^31 - 1, inactive edge rows 0) and the distinct counts are 0-d
+tensors."""
 
 import jax
 import jax.numpy as jnp
@@ -92,10 +95,13 @@ def test_build_local_table_equals_reference(seed, cap, n_ids):
     used = t_ref < ref._SENTINEL
     table, counts, n = reconcile.build_local_table(
         torch.from_numpy(core), [torch.from_numpy(p) for p in planes], cap)
-    np.testing.assert_array_equal(table.numpy(), t_ref[used])
-    np.testing.assert_array_equal(counts.numpy(), c_ref[used])
+    np.testing.assert_array_equal(table.numpy(), t_ref)
+    np.testing.assert_array_equal(counts.numpy(), c_ref)
+    assert (table.numpy() < ref._SENTINEL).sum() == used.sum()
     truth = np.unique(np.concatenate([core.ravel()] + [p.ravel()
                                                       for p in planes]))
+    assert n.dim() == 0
+    n = int(n)
     assert n == int((truth > 0).sum()) >= int(n_ref)
     assert (n > cap) >= (int(n_ref) > cap)
     packed = reconcile.rename_to_packed(torch.from_numpy(core), table, 3, cap)
@@ -125,8 +131,20 @@ def _packed_case(seed, n_shards, cap, n_ids):
                       [(j, j + 1) for j in range(n_shards - 1)])
     edges = [reconcile.boundary_edges(packed[r][0], theirs[r])
              for r in range(n_shards)]
-    keys = [t.to(torch.int64) - 1 for t in tables]
+    keys = [torch.where(t < ref._SENTINEL, t.to(torch.int64) - 1,
+                        reconcile._SENTINEL) for t in tables]
     return packed, keys, counts, edges
+
+
+def _ref_coords(keys, cap):
+    """The reference's (hi, lo) pairs of the port's coordinates, the
+    reference's sentinel on unused slots."""
+    sent = ref._SENTINEL
+    k = [key.numpy() for key in keys]
+    return (np.stack([_pad(np.where(x < reconcile._SENTINEL, x // PLANE,
+                                    sent), cap, sent) for x in k]),
+            np.stack([_pad(np.where(x < reconcile._SENTINEL, x % PLANE,
+                                    sent), cap, sent) for x in k]))
 
 
 def _pad(a, n, fill):
@@ -142,9 +160,7 @@ def test_packed_compact_labels_equal_reference(seed, n_shards, cap, n_ids,
     packed, keys, counts, edges = _packed_case(seed, n_shards, cap, n_ids)
     got = reconcile.packed_compact_labels(packed, keys, counts, edges, cap,
                                           n_shards, min_size=min_size)
-    sent = ref._SENTINEL
-    hi = np.stack([_pad(k.numpy() // PLANE, cap, sent) for k in keys])
-    lo = np.stack([_pad(k.numpy() % PLANE, cap, sent) for k in keys])
+    hi, lo = _ref_coords(keys, cap)
     cnt = np.stack([_pad(c.numpy(), cap, 0) for c in counts])
     n_e = max(max(len(e) for e in edges), 1)
     e = np.stack([_pad(e.numpy().reshape(-1, 2), n_e, 0) for e in edges])
@@ -171,9 +187,7 @@ def test_packed_merge_to_coord_labels_equal_reference(seed, n_shards, cap,
     packed, keys, _, edges = _packed_case(seed, n_shards, cap, n_ids)
     got = reconcile.packed_merge_to_coord_labels(packed, keys, edges, cap,
                                                  n_shards)
-    sent = ref._SENTINEL
-    hi = np.stack([_pad(k.numpy() // PLANE, cap, sent) for k in keys])
-    lo = np.stack([_pad(k.numpy() % PLANE, cap, sent) for k in keys])
+    hi, lo = _ref_coords(keys, cap)
     n_e = max(max(len(e) for e in edges), 1)
     e = np.stack([_pad(e.numpy().reshape(-1, 2), n_e, 0) for e in edges])
 
@@ -207,11 +221,90 @@ def test_merge_boundary_labels_equals_reference():
 
 
 def test_boundary_edges_distinct_pairs():
-    """The reference's (E, 2) rows with a 0 dropped and duplicates kept
-    once."""
+    """The reference's (E, 2) rows, a row a voxel with 0 on the inactive
+    ones; with a 0 dropped and duplicates kept once, the distinct pairs."""
     rng = np.random.default_rng(7)
     a, b = _random_shard(rng, 5, (6, 7)), _random_shard(rng, 5, (6, 7))
-    want = np.asarray(ref.boundary_edges(jnp.asarray(a), jnp.asarray(b)))
-    want = np.unique(want[(want > 0).all(1)], axis=0)
-    got = reconcile.boundary_edges(torch.from_numpy(a), torch.from_numpy(b))
-    np.testing.assert_array_equal(got.numpy(), want)
+    rows = np.asarray(ref.boundary_edges(jnp.asarray(a), jnp.asarray(b)))
+    want = np.unique(rows[(rows > 0).all(1)], axis=0)
+    got = reconcile.boundary_edges(torch.from_numpy(a),
+                                   torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, rows)
+    np.testing.assert_array_equal(np.unique(got[(got > 0).all(1)], axis=0),
+                                  want)
+
+
+@pytest.mark.parametrize("seed,cap", [(4, 14), (5, 18), (6, 40)])
+def test_overflow_count_equals_reference(seed, cap, capsys):
+    """Four shards whose core and planes each hold at most 12 ids (so the
+    reference's count, taken over candidates truncated to ``cap`` a source,
+    is the true one) and whose union may pass ``cap``: ``n_distinct`` is a
+    0-d tensor equal to the reference's, and the overflow count
+    (``report_overflow``, a pmax) equals the reference's; on the CPU its
+    message prints at once, in the reference's words, iff it passes
+    ``cap``."""
+    rng = np.random.default_rng(seed)
+    got, want = [], []
+    for _ in range(4):
+        core = _random_shard(rng, 12)
+        planes = [np.where(p > 0, p + 100 * (k + 1), 0).astype(np.int32)
+                  for k, p in enumerate(_random_shard(rng, 12, (4, 5))
+                                        for _ in range(2))]
+        n_ref = jax.jit(ref.build_local_table, static_argnums=2)(
+            jnp.asarray(core), [jnp.asarray(p) for p in planes], cap)[2]
+        _, _, n = reconcile.build_local_table(
+            torch.from_numpy(core), [torch.from_numpy(p) for p in planes], cap)
+        assert n.dim() == 0 and int(n) == int(n_ref)
+        got.append(n)
+        want.append(int(n_ref))
+    c = reconcile.report_overflow(got, cap, reconcile.SHARD_OVERFLOW)
+    assert c.dim() == 0 and int(c) == max(want)
+    printed = capsys.readouterr().out
+    message = reconcile.SHARD_OVERFLOW.format(c=max(want), cap=cap)
+    assert (message in printed) == (max(want) > cap)
+    # a count on the CPU printed when it was made; nothing is left to print
+    assert not reconcile.print_overflow(c, cap, reconcile.SHARD_OVERFLOW)
+    assert capsys.readouterr().out == ""
+
+
+def test_global_compact_overflow_stays_a_tensor(capsys):
+    """``global_compact_labels`` keeps its overflow count on the function,
+    a 0-d tensor (the largest per-shard distinct count)."""
+    labels = [torch.tensor([1, 1, 2, 3, 0], dtype=torch.int32),
+              torch.tensor([4, 0, 0, 0, 0], dtype=torch.int32)]
+    reconcile.global_compact_labels(labels, 2)
+    c = reconcile.global_compact_labels.last_overflow
+    assert c.dim() == 0 and int(c) == 3
+    assert "a shard has 3 distinct labels > cap 2" in capsys.readouterr().out
+
+
+def test_reconcile_on_meta_has_fixed_shapes():
+    """Every table, edge list and count has a fixed shape: the whole
+    reconciliation runs on the meta device, where a host read or a
+    data-dependent shape (``unique``, ``nonzero``, boolean indexing)
+    raises."""
+    cap, n = 8, 3
+    core = torch.empty((3, 4, 6), dtype=torch.int32, device="meta")
+    table, counts, nd = reconcile.build_local_table(
+        core, [core[0], core[:, 0]], cap)
+    assert table.shape == counts.shape == (cap,) and nd.shape == ()
+    keys = reconcile.global_lin(table, 4, (0, 0), 8, 6)
+    packed = reconcile.rename_to_packed(core, table, 1, cap)
+    edges = reconcile.boundary_edges(packed[0], packed[1])
+    assert edges.shape == (4 * 6, 2)
+    c = reconcile.report_overflow([nd] * n, cap, reconcile.SHARD_OVERFLOW)
+    assert c.shape == ()
+    out = reconcile.packed_compact_labels([packed] * n, [keys] * n,
+                                          [counts] * n, [edges] * n, cap, n,
+                                          min_size=2)
+    assert [o.shape for o in out] == [core.shape] * n
+    group, gmin, gval = reconcile.packed_groups(
+        [keys] * n, [edges] * n, cap, n, values=[counts.float()] * n)
+    assert group.shape == (n * cap + 1,) and gmin.shape == gval.shape == (
+        n * cap,)
+    assert reconcile.coord_labels(gmin).shape == (n * cap + 1,)
+    coord = reconcile.packed_merge_to_coord_labels([packed] * n, [keys] * n,
+                                                   [edges] * n, cap, n)
+    assert coord[0].shape == core.shape
+    compact = reconcile.global_compact_labels([core] * n, cap, min_size=2)
+    assert compact[0].shape == core.shape

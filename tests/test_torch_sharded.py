@@ -35,9 +35,11 @@ from tpuseg_torch.data.normalize import histogram_percentile_scalars
 from tpuseg_torch.infer import (make_infer_fn, make_sharded_infer_fn,
                                 make_z_mesh, make_zy_mesh, shard_volume,
                                 unshard)
-from tpuseg_torch.infer.sharded import global_histogram_percentile
+from tpuseg_torch.infer.sharded import (global_histogram_percentile,
+                                        report_sharded_counts)
 from tpuseg_torch.parallel import exchange_z_halo
-from tpuseg_torch.parallel.reconcile import _closure_table, apply_label_map
+from tpuseg_torch.parallel.reconcile import (SHARD_OVERFLOW, _closure_table,
+                                             apply_label_map)
 
 from chip_smoke import AnalyticNet
 from test_torch_model import port_config, single_torch_thread  # noqa: F401
@@ -377,3 +379,27 @@ def test_sharded_equals_single_device_real_unet(trained_unet):
         got = _sharded(cfg, vol.image, mesh_shape, normalize=True,
                        model=model)
         np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_counts_stay_on_the_function(cfg, normalized, capsys):
+    """A call keeps its label-table overflow (0-d) and the merge's dropped
+    pairs ((3,)) on ``infer`` as tensors; on the CPU the overflow prints at
+    once in the reference's words, so ``report_sharded_counts`` has nothing
+    left to print. The overflow drops instances but keeps the labels
+    dense."""
+    c = _with(cfg, merge_saddle_ratio=0.5)
+    c = dataclasses.replace(c, infer=dataclasses.replace(
+        c.infer, shard_max_labels=2))
+    mesh = make_z_mesh(devices=CPU8[:2])
+    infer = make_sharded_infer_fn(AnalyticNet(), port_config(c), mesh,
+                                  normalize=False)
+    assert infer.last_overflow is None
+    labels = unshard(infer(shard_volume(normalized, mesh)), mesh)
+    n = infer.last_overflow
+    assert n.dim() == 0 and int(n) > 2
+    assert SHARD_OVERFLOW.format(c=int(n), cap=2) in capsys.readouterr().out
+    assert infer.last_merge_dropped.tolist() == [0, 0, 0]
+    report_sharded_counts(infer)
+    assert capsys.readouterr().out == ""
+    ids = np.unique(labels)
+    assert 1 <= ids.max() <= 4 and (ids == np.arange(ids.size)).all()

@@ -140,6 +140,8 @@ def main(argv=None) -> int:
     from tpuseg_torch.data.volume_io import load_volume, save_volume
     from tpuseg_torch.infer import (make_infer_fn, make_sharded_infer_fn,
                                     shard_volume, stream_infer, unshard)
+    from tpuseg_torch.infer.sharded import report_sharded_counts
+    from tpuseg_torch.ops.merge import report_dropped, saddle_merge
     from tpuseg_torch.models import build_model
     from tpuseg_torch.parallel import Mesh
     from tpuseg_torch.parallel.mesh import place_shards
@@ -209,12 +211,17 @@ def main(argv=None) -> int:
         infer = make_sharded_infer_fn(model, cfg, mesh,
                                       normalize=not args.no_normalize)
         labels = unshard(infer(shard_volume(volume, mesh)), mesh)
+        # the counts the call kept on the card, read after the labels
+        report_sharded_counts(infer)
     else:
         infer = make_infer_fn(model, cfg, normalize=not args.no_normalize,
                               with_diagnostics=args.report_convergence)
         out = infer(torch.from_numpy(volume).to(device))
         labels, diag = out if args.report_convergence else (out, None)
         labels = labels.cpu().numpy()  # waits for the device
+        if cfg.postproc.merge_saddle_ratio > 0:
+            report_dropped(saddle_merge.last_dropped,
+                           cfg.postproc.merge_max_pairs)
     dt = time.perf_counter() - t0
 
     status = 0
@@ -222,7 +229,7 @@ def main(argv=None) -> int:
         print("--report-convergence: not wired for --shard "
               "(use --stream or single-device)")
     elif args.report_convergence:
-        n_trunc = diag["flood_truncated"]
+        n_trunc = int(diag["flood_truncated"])
         print(f"flood convergence: TRUNCATED ({n_trunc} truncated voxels — "
               "raise postproc.flood_iters)" if n_trunc else
               "flood convergence: CONVERGED (0 truncated voxels)")

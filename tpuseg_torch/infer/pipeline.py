@@ -17,13 +17,13 @@ reference runs it as one jitted program: the percentile scalars, the
 calibrated threshold and the size filter's label counts come from kernels
 of their own (``ops/hist.py``) and stay on the device, K1 and K5 read their
 thresholds from device memory, and the chase and the flood loop on the
-device (``ops/resolve.py``). The host's launches, not its reads, then
-bound the call (``make_batched_infer_fn``). Three opt-ins still read the
-host:
-``postproc.merge_saddle_ratio > 0`` (the saddle merge's ``torch.unique``,
-``ops/merge.py``), ``with_diagnostics=True`` (the truncation count) and
-the streamed and sharded paths (``infer/streaming.py``,
-``infer/sharded.py``), between chunks or shards.
+device (``ops/resolve.py``). The saddle merge (``postproc.merge_saddle_ratio
+> 0``) sorts fixed-size pair tables and closes them on U1
+(``ops/merge.py``), and ``with_diagnostics=True`` returns the truncation
+count as a 0-d device tensor, as the reference does; the merge's dropped
+count stays on ``ops.merge.saddle_merge.last_dropped``. The host's
+launches, not its reads, then bound the call (``make_batched_infer_fn``).
+The streamed path reads the host between chunks (``infer/streaming.py``).
 
 ``InferConfig.apply_impl`` selects the sweep's forward: "flax" is the module
 forward, "fused" the eval apply of ``models/fused_eval.py`` (the three
@@ -71,14 +71,15 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
                        plain=plain)
     diag = None
     if want_diag:
-        # measured on the raw watershed output, before filtering
-        diag = {"flood_truncated": int(flood_truncation_count(
-            labels, threshold_mask(fg_prob, fg_threshold)))}
+        # measured on the raw watershed output, before filtering; a 0-d
+        # int32 device tensor, read by whoever reads the labels
+        diag = {"flood_truncated": flood_truncation_count(
+            labels, threshold_mask(fg_prob, fg_threshold))}
     if pp.merge_saddle_ratio > 0:
         # prominence agglomeration: basins split by duplicate peaks on a
         # flat top merge; real instances keep their valley
         labels = saddle_merge(labels, peak_prob, pp.merge_saddle_ratio,
-                              max_pairs=pp.merge_max_pairs)
+                              max_pairs=pp.merge_max_pairs, plain=plain)
     labels = size_filter_and_compact(labels, pp.min_size, plain=plain)
     return (labels, diag) if want_diag else labels
 
@@ -105,10 +106,11 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
     """``(infer, stage_net, stage_post)``: ``stage_net(volume)`` gives the
     logits, ``stage_post(logits)`` the labels (and diagnostics), ``infer``
     chains them. ``plain=True`` runs the plain twins of the post-processing's
-    kernels (the calibrated threshold's histogram, the watershed, the size
-    filter's counts) and of the fused apply's instead of the CUDA kernels
-    (the card's end-to-end check of the kernels); the percentile scalars of
-    ``stage_net`` still come from H1 and H2."""
+    kernels (the calibrated threshold's histogram, the watershed, the
+    merge's closure, the size filter's counts) and of the fused apply's
+    instead of the CUDA kernels (the card's end-to-end check of the
+    kernels); the percentile scalars of ``stage_net`` still come from H1
+    and H2."""
     apply_fn = make_apply_fn(model, cfg, plain)
     if cfg.infer.program not in ("fused", "staged"):
         raise ValueError(f"unknown InferConfig.program {cfg.infer.program!r}")
@@ -178,8 +180,9 @@ def make_infer_fn(model, cfg: Config, normalize: bool = True,
     ``{"fg_logits", "peak_logits"}`` and must sit on that device.
 
     ``with_diagnostics=True``: ``infer`` returns ``(labels, diag)`` with
-    ``diag["flood_truncated"]`` (``ops.watershed.flood_truncation_count``;
-    zero iff the flood converged)."""
+    ``diag["flood_truncated"]`` (``ops.watershed.flood_truncation_count``,
+    a 0-d int32 tensor on the volume's device; zero iff the flood
+    converged)."""
     return make_infer_stages(model, cfg, normalize, with_diagnostics)[0]
 
 
@@ -188,8 +191,8 @@ def make_batched_infer_fn(model, cfg: Config, normalize: bool = True):
     (N, D, H, W) tensor: each volume normalized with its own percentiles
     and labelled independently by :func:`make_infer_fn`'s function, one
     after the other, into one label tensor on the volumes' device. On the
-    card no call reads the host (module docstring; the saddle merge is the
-    one opt-in that does), as the reference maps the volumes inside one
+    card no call reads the host (module docstring), as the reference maps
+    the volumes inside one
     program without a host round trip. The host's launches still bound the
     batch: each volume's, 128 of them chase passes, fill the launch queue,
     so on the card the batch takes as long as N single calls

@@ -25,9 +25,9 @@ collective (``parallel/collectives.py``) then spans the processes:
    slab: labels are the slab's root index + 1, so a basin both shards see
    whole gets the same root on both;
 6. each shard's bounded table of its core's and overlap planes' ids
-   (``shard_max_labels``, overflow reported), their global root
-   coordinates, packed ids, and the edges between its packing and its
-   lower neighbour's of the same overlap plane;
+   (``shard_max_labels``; the overflow count stays on the device), their
+   global root coordinates, packed ids, and the edges between its packing
+   and its lower neighbour's of the same overlap plane;
 7. with ``postproc.merge_saddle_ratio > 0``, the saddle merge of the
    reconciled basins, each shard testing the faces of its core
    (``_merge_edges``): the one-shot merge test on the same basins;
@@ -40,6 +40,13 @@ instance whose basin fits within ``shard_halo`` of a boundary. (The JAX
 package merges each extended slab before the reconciliation, where a
 merge chain can reach a basin the slab cuts off; the two agree where
 instances and merge chains fit within the halo.)
+
+Every table and edge list has a fixed size (``parallel/reconcile.py``),
+the closures run on U1 and the counts (samples, table overflow, the merge's
+dropped pairs) come from shapes or stay on the device, so in one process
+``infer`` enqueues the whole call with no host read: the host reads once,
+when ``unshard`` copies the labels out, and ``report_sharded_counts`` then
+prints what the call kept on the device.
 
 Root coordinates are int64 linear indices ``(gz * H + gy) * W + x``
 (``z_offset`` places the stack inside a larger volume); the bound this path
@@ -58,7 +65,8 @@ from tpuseg_torch.data.normalize import bin_counts, percentiles_from_counts
 from tpuseg_torch.infer.pipeline import make_apply_fn
 from tpuseg_torch.infer.tiles import tiled_forward
 from tpuseg_torch.ops.calibrate import fg_bin_counts, threshold_from_counts
-from tpuseg_torch.ops.merge import saddle_merge_core_edges
+from tpuseg_torch.ops.merge import (SENT, report_dropped,
+                                    saddle_merge_core_edges)
 from tpuseg_torch.ops.watershed import watershed
 from tpuseg_torch.parallel.collectives import (all_gather, pmax, pmin,
                                                ppermute, psum)
@@ -68,28 +76,30 @@ from tpuseg_torch.parallel.multihost import is_distributed, put_global
 from tpuseg_torch.parallel.reconcile import (SHARD_OVERFLOW, boundary_edges,
                                              build_local_table, global_lin,
                                              packed_compact_labels,
-                                             packed_groups, rename_to_packed,
+                                             packed_groups, print_overflow,
+                                             rename_to_packed,
                                              report_overflow)
 
 
 def global_histogram_percentile(slabs, pcts, bins: int = 4096,
-                                sample_stride: int = 1):
+                                sample_stride: int = 1, n_shards=None):
     """Percentiles of the whole volume from its shards' slabs: the global
     min and max, then the summed int64 histograms of every
     ``sample_stride``-th x voxel (x is never sharded, so the shards sample
-    the one-shot path's voxels). ``slabs``: this process's shards. Returns
+    the one-shot path's voxels). ``slabs``: this process's shards, of one
+    shape, out of ``n_shards`` in all (default: these). Returns
     ``(p_lo, p_hi)``, 0-d float32 on the first shard's device, equal to
     the one-shot ``histogram_percentile_scalars``."""
     slabs = [s.float() for s in slabs]
     lo = pmin([s.min() for s in slabs])
     span = torch.clamp(pmax([s.max() for s in slabs]) - lo, min=1e-12)
-    hists, n = [], 0
+    hists = []
     for s in slabs:
         sample = s[..., ::sample_stride] if sample_stride > 1 else s
         hists.append(bin_counts(sample.reshape(1, -1), lo[None].to(s.device),
                                 span[None].to(s.device), bins))
-        n += sample.numel()
-    n = int(psum([torch.tensor(n)]))
+    # every shard has one shape: the count comes from it
+    n = sample.numel() * (n_shards or len(slabs))
     vals = percentiles_from_counts(psum(hists), n, lo[None], span[None],
                                    pcts, bins)
     return tuple(vals[:, 0].to(lo.device))
@@ -104,7 +114,7 @@ def _core(t: torch.Tensor, halo: int, sizes) -> torch.Tensor:
 
 
 def _merge_edges(parts, keys, edges, cap: int, n_shards: int, pp,
-                 core) -> list:
+                 core):
     """The saddle merge of the reconciled basins, as packed-id edges: the
     overlap-plane closure groups the shards' basins (a basin two shards
     see whole is one group, named by its root); each group's maximum is
@@ -112,23 +122,29 @@ def _merge_edges(parts, keys, edges, cap: int, n_shards: int, pp,
     holds it; each shard tests the faces whose first voxel lies in its
     core (``saddle_merge_core_edges``) on its grown core in group labels,
     and every passing pair comes back as an edge between one packed id of
-    each group. The union of the shards' tests is the one-shot merge test
-    on the same basins."""
+    each group (0 on an unused slot). The union of the shards' tests is
+    the one-shot merge test on the same basins. Returns the shards' (E, 2)
+    edges and the largest dropped count of each axis over them."""
     group, _, gval = packed_groups(keys, edges, cap, n_shards,
                                    values=[t["peak"] for t in parts])
-    ids = np.flatnonzero(group)
-    rep = np.zeros(int(group.max()) + 1 if ids.size else 1, np.int32)
-    rep[group[ids]] = ids               # a packed id of each group
-    out = []
+    m = group.numel()
+    # the smallest packed id of each group (group 0: the background's 0)
+    rep = torch.full((m,), m, dtype=torch.int32, device=group.device)
+    rep = rep.scatter_reduce(0, group.long(), torch.arange(
+        m, dtype=torch.int32, device=group.device), "amin")
+    out, dropped = [], []
     for t in parts:
         dev = t["packed"].device
-        g = torch.from_numpy(group).to(dev)[t["packed"].long()]
-        lo, hi = saddle_merge_core_edges(
+        g = group.to(dev)[t["packed"].long()]
+        lo, hi, d = saddle_merge_core_edges(
             g, t.pop("grown_peak"), core, pp.merge_saddle_ratio,
-            torch.from_numpy(gval).to(dev), max_pairs=pp.merge_max_pairs)
-        r = torch.from_numpy(rep).to(dev)
-        out.append(torch.stack([r[lo.long()], r[hi.long()]], dim=-1))
-    return out
+            gval.to(dev), max_pairs=pp.merge_max_pairs)
+        r = rep.to(dev)
+        out.append(torch.stack([
+            torch.where(e != SENT, r[e.long().clamp_(max=m - 1)], 0)
+            for e in (lo, hi)], dim=-1))
+        dropped.append(d)
+    return out, pmax(dropped)
 
 
 def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
@@ -146,7 +162,12 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
     "peak_logits"}``; it is copied to each shard device it is not on. The
     sweep's forward is ``make_apply_fn``'s (``apply_impl="fused"`` runs
     K4). ``plain=True`` runs the kernels' twins on the same devices (the
-    card's check of the kernels)."""
+    card's check of the kernels).
+
+    A call keeps its counts on the device, on ``infer``: ``last_overflow``
+    (the largest per-shard distinct count, 0-d) and, with the merge on,
+    ``last_merge_dropped`` (the largest per-axis dropped count, (3,));
+    ``report_sharded_counts(infer)`` prints them after the labels."""
     axes = tuple(mesh.axis_names)
     if not 1 <= len(axes) <= 2:
         raise ValueError(f"mesh must have 1 or 2 spatial axes, got {axes}")
@@ -186,7 +207,8 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         if normalize:
             p_lo, p_hi = global_histogram_percentile(
                 slabs, cfg.data.normalize_pcts,
-                sample_stride=cfg.data.normalize_sample_stride)
+                sample_stride=cfg.data.normalize_sample_stride,
+                n_shards=mesh.size)
             for r, s in zip(local, slabs):
                 lo = p_lo.to(s.device)
                 span = torch.clamp(p_hi.to(s.device) - lo, min=1e-6)
@@ -241,8 +263,9 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
             out = {"key": global_lin(table, lab.shape[1], origin, H, W),
                    "count": counts, "n_distinct": nd,
                    "packed": rename_to_packed(grown, table, r, cap)}
-            if merging:
-                out["peak"] = p.reshape(-1)[table.long() - 1]
+            if merging:                   # an unused slot reads any voxel
+                out["peak"] = p.reshape(-1)[(table.long() - 1).clamp_(
+                    0, p.numel() - 1)]
                 out["grown_peak"] = _core(p, halo, grow).clone()
             return out
 
@@ -252,14 +275,13 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         if pp.fg_target_fraction > 0:
             probs = {r: sweep(r) for r in local}
             stride = cfg.data.normalize_sample_stride
-            hists, n = [], 0
+            hists = []
             for f, _ in probs.values():
                 core = _core(f, halo, sizes)
                 if stride > 1:
                     core = core[..., ::stride]
                 hists.append(fg_bin_counts(core))
-                n += core.numel()
-            n = int(psum([torch.tensor(n)]))
+            n = core.numel() * mesh.size          # the cores' one shape
             # a 0-d float32 tensor, as the reference's traced threshold:
             # a bf16 map compares with it in float32 (ops.watershed)
             thr = threshold_from_counts(psum(hists), n, pp.fg_target_fraction)
@@ -269,13 +291,15 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                 parts[r] = label(r, f, p, thr.to(f.device))
         else:
             parts = {r: label(r, *sweep(r), pp.fg_threshold) for r in local}
-        report_overflow([t["n_distinct"] for t in parts.values()], cap,
-                        SHARD_OVERFLOW)
+        infer.last_overflow = report_overflow(
+            [t["n_distinct"] for t in parts.values()], cap, SHARD_OVERFLOW)
         keys = [t["key"] for t in parts.values()]
         core_p = {r: _core(t["packed"], 0, sizes) for r, t in parts.items()}
 
         # the overlap-plane edges of every cut dim feed one closure
-        # (corner-crossing instances merge transitively)
+        # (corner-crossing instances merge transitively); every shard gives
+        # one plane's rows a cut dim (none active without a lower
+        # neighbour: ppermute's zeros), so the processes' parts match
         edges = []
         for d, a in enumerate(axes):
             if nper[d] <= 1:
@@ -287,20 +311,33 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                      for r in line],
                     [(j, j + 1) for j in range(len(line) - 1)],
                     [mesh.processes[r] for r in line])
-                for j, r in enumerate(line[1:], start=1):
+                for j, r in enumerate(line):
                     if r in parts:
                         edges.append(boundary_edges(core_p[r].select(d, 0),
                                                     theirs[j]))
         if merging:                              # 7
-            edges += _merge_edges(list(parts.values()), keys, edges, cap,
-                                  mesh.size, pp, sizes + shape[len(axes):])
+            more, infer.last_merge_dropped = _merge_edges(
+                list(parts.values()), keys, edges, cap, mesh.size, pp,
+                sizes + shape[len(axes):])
+            edges += more
         # 8: global union, size filter, dense numbering
         return packed_compact_labels(list(core_p.values()), keys,
                                      [t["count"] for t in parts.values()],
                                      edges, cap, mesh.size,
                                      min_size=pp.min_size)
 
+    infer.cap, infer.max_pairs = cap, pp.merge_max_pairs
+    infer.last_overflow = infer.last_merge_dropped = None
     return infer
+
+
+def report_sharded_counts(infer) -> None:
+    """Print what the last call of a ``make_sharded_infer_fn`` function
+    kept on the card, in the reference's words: the label-table overflow
+    and the saddle merge's dropped pairs. A host read, for after the
+    labels; counts on the CPU were printed when they were made."""
+    print_overflow(infer.last_overflow, infer.cap, SHARD_OVERFLOW)
+    report_dropped(infer.last_merge_dropped, infer.max_pairs)
 
 
 def shard_volume(volume, mesh: Mesh) -> list:

@@ -58,7 +58,9 @@ from tpuseg_torch.infer.pipeline import make_apply_fn
 from tpuseg_torch.infer.tiles import tiled_forward
 from tpuseg_torch.ops.calibrate import fg_bin_counts
 from tpuseg_torch.ops.components import rename, union_closure
-from tpuseg_torch.ops.merge import saddle_merge_core_edges, saddle_merge_edges
+from tpuseg_torch.ops.merge import (SENT, report_dropped,
+                                    saddle_merge_core_edges,
+                                    saddle_merge_edges)
 from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
 from tpuseg_torch.parallel.collectives import (all_gather, pmax, pmin,
                                                ppermute, psum)
@@ -68,7 +70,8 @@ from tpuseg_torch.parallel.multihost import is_distributed, is_multiprocess
 from tpuseg_torch.parallel.reconcile import (CHUNK_OVERFLOW, boundary_edges,
                                              build_local_table, coord_labels,
                                              global_lin, packed_groups,
-                                             rename_to_packed, report_overflow)
+                                             print_overflow, rename_to_packed,
+                                             report_overflow)
 
 
 def _chunk_histogram(vol_chunk: np.ndarray, lo: float, span: float, bins: int):
@@ -160,9 +163,10 @@ def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
         if pp.merge_saddle_ratio > 0:
             # only the passing edges leave the device: the host union-find
             # that joins chunk-boundary ids applies them
-            me_lo, me_hi = saddle_merge_edges(labels, pk,
-                                              pp.merge_saddle_ratio,
-                                              max_pairs=pp.merge_max_pairs)
+            me_lo, me_hi, dropped = saddle_merge_edges(
+                labels, pk, pp.merge_saddle_ratio,
+                max_pairs=pp.merge_max_pairs)
+            me_lo, me_hi = _passing(me_lo, me_hi, dropped, pp)
         else:
             me_lo = me_hi = torch.zeros(0, dtype=torch.int32)
         # an upper bound over overlapping windows; zero stays exact
@@ -171,6 +175,14 @@ def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                                                          n_trunc)
 
     return fg_hist_fn, chunk_net_fn, chunk_post_fn
+
+
+def _passing(me_lo, me_hi, dropped, pp):
+    """The passing edges out of the fixed-size slots, with the dropped
+    pairs reported: host reads, between chunks."""
+    report_dropped(dropped, pp.merge_max_pairs)
+    keep = me_lo != SENT
+    return me_lo[keep], me_hi[keep]
 
 
 def _crop_chunk(labels, halo: int, chunk_z: int, cz: int):
@@ -252,7 +264,7 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                                      calib_bins) for i in local])
 
     def chunk_post_fn(fg, pk, fg_thr, cz):
-        hly, W = fg[local[0]].shape[1:]
+        ez, hly, W = fg[local[0]].shape
         hl = hly - 2 * halo_y
         H = hl * n_y
         dev = mesh.devices[local[0]]
@@ -277,11 +289,17 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
             tables.append(table)
             n_distinct.append(nd)
             grown_p[i] = rename_to_packed(grown, table, i, cap)
-            if merging:
-                peaks.append(pk[i].reshape(-1)[table.long() - 1])
+            if merging:                   # an unused slot reads any voxel
+                peaks.append(pk[i].reshape(-1)[(table.long() - 1).clamp_(
+                    0, pk[i].numel() - 1)])
                 grown_pk.append(pk[i][:, halo_y:halo_y + grown.shape[1]])
             pk[i] = None
-        report_overflow(n_distinct, cap, CHUNK_OVERFLOW)
+        # between chunks the host reads: the overflow prints at once
+        print_overflow(report_overflow(n_distinct, cap, CHUNK_OVERFLOW), cap,
+                       CHUNK_OVERFLOW)
+        if ez * H * W > 2 ** 31 - 1:      # the chunk's coordinate labels
+            raise ValueError("coordinate labels exceed the int32 range: "
+                             f"an extended chunk of {ez * H * W} voxels")
         keys = [global_lin(t, hly, (0, i * hl - halo_y), H, W)
                 for i, t in zip(local, tables)]
         edges = []
@@ -291,30 +309,33 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
                               [(j, j + 1) for j in range(n_y - 1)],
                               mesh.processes)
             edges = [boundary_edges(grown_p[j][:, 0], theirs[j])
-                     for j in range(1, n_y) if grown_p[j] is not None]
+                     for j in local]
         # every group renamed to its smallest root coordinate in the chunk
         group, gmin, gval = packed_groups(keys, edges, cap, n_y,
                                           peaks if merging else None)
-        coord = torch.from_numpy(coord_labels(gmin)).to(dev)
-        group = torch.from_numpy(group).to(dev)
+        coord = coord_labels(gmin).to(dev)
+        group = group.to(dev)
         parts = [group[grown_p[i].to(dev).long()] for i in local]
         labels = torch.cat([coord[p[:, :hl].long()] for p in parts], dim=1)
         me_lo = me_hi = torch.zeros(0, dtype=torch.int32, device=dev)
         if merging:
             # as the single-device chunk, the passing edges go to the host
             # union-find; each shard tests the faces of its core rows
-            basin_peak = torch.from_numpy(gval).to(dev)
             e = [saddle_merge_core_edges(
                 p, q.to(dev), (p.shape[0], hl, W), pp.merge_saddle_ratio,
-                basin_peak, max_pairs=pp.merge_max_pairs)
+                gval.to(dev), max_pairs=pp.merge_max_pairs)
                 for p, q in zip(parts, grown_pk)]
-            me_lo = coord[torch.cat([lo for lo, _ in e]).long()]
-            me_hi = coord[torch.cat([hi for _, hi in e]).long()]
+            me_lo, me_hi = (torch.cat([torch.where(
+                x[k] != SENT, coord[x[k].long().clamp(max=coord.numel() - 1)],
+                SENT) for x in e]) for k in (0, 1))
+            dropped = pmax([x[2] for x in e])
         if gathered:
             # every process gets the whole chunk: its rows, by shard
             labels = all_gather([labels.movedim(1, 0)]).movedim(0, 1)
             me_lo, me_hi = all_gather([me_lo]), all_gather([me_hi])
             n_trunc = int(psum([torch.tensor(n_trunc)]))
+        if merging:
+            me_lo, me_hi = _passing(me_lo, me_hi, dropped, pp)
         return _crop_chunk(labels, halo, chunk_z, cz) + (me_lo, me_hi,
                                                          n_trunc)
 

@@ -1,10 +1,13 @@
 """Ops of the port: peak NMS (with the K5 CUDA kernel, ``ops/nms.py``),
 watershed (with the K1-K3 kernels; see ``ops/watershed.py``), saddle merge,
 connected components, instance sizes and the size filter, compact relabel,
-the histograms of one-volume inference (H1-H3, ``ops/hist.py``), the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
+the histograms of one-volume inference (H1-H3, ``ops/hist.py``), the
+union-find closure of the merge and the sharded paths (U1,
+``ops/closure.py``), the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies share the weight
 layout of ``ops/conv_mma.py``."""
 
+from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
                                         fused_convblock_plain)
 from tpuseg_torch.ops.convtrain import conv3x3, conv3x3_plain, conv3x3_raw
@@ -30,7 +33,7 @@ from tpuseg_torch.ops.watershed import (ascent_labels,
 #: ``.launches`` counter
 KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
-                   label_counts)
+                   label_counts, union_closure)
 
 __all__ = [
     "KERNEL_WRAPPERS", "apply_merge_table", "ascent_labels", "bin_counts",
@@ -43,5 +46,6 @@ __all__ = [
     "peak_nms", "percentiles",
     "radius3", "saddle_merge", "saddle_merge_edges", "saddle_merge_table",
     "seed_chase_pass", "seed_labels_from_peaks", "size_filter",
-    "size_filter_and_compact", "steepest_dir_codes", "watershed",
+    "size_filter_and_compact", "steepest_dir_codes", "union_closure",
+    "union_closure_plain", "watershed",
 ]

@@ -56,6 +56,7 @@ SIGNATURES = {
     "tpuseg_bin_counts": [_P, _L, _I, _P, _P, _I, _I, _P, _P],
     "tpuseg_percentiles": [_P, _I, _I, _L, _P, _P, _P, _I, _P, _P],
     "tpuseg_label_counts": [_P, _L, _P, _P],
+    "tpuseg_union_closure": [_P, _P, _L, _P, _P, _P, _L, _I, _P],
 }
 
 

@@ -59,13 +59,21 @@ def _gather_ragged(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([b[:s] for b, s in zip(bufs, sizes)])
 
 
-def all_gather(parts) -> torch.Tensor:
+def all_gather(parts, ragged: bool = False) -> torch.Tensor:
     """The shards' tensors concatenated along dim 0 in shard order, on the
-    first local shard's device."""
+    first local shard's device. Under a process group every rank's parts
+    must have the same shape, as the fixed-size tables of the sharded paths
+    do; ``ragged=True`` lets the ranks' row counts differ, at the price of
+    one more collective for the sizes and their read on the host."""
     local = torch.cat([p.to(parts[0].device) for p in parts])
     if not is_distributed():
         return local
-    return _gather_ragged(local).to(parts[0].device)
+    if ragged:
+        return _gather_ragged(local).to(parts[0].device)
+    x = local.to(comm_device()).contiguous()
+    bufs = [torch.empty_like(x) for _ in range(process_count())]
+    dist.all_gather(bufs, x)
+    return torch.cat(bufs).to(parts[0].device)
 
 
 def psum(parts) -> torch.Tensor:
