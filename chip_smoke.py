@@ -7,7 +7,8 @@ Phases, in order; any failure raises and exits non-zero:
 1. the card: name, count, power limit (CUDA missing -> error);
 2. build the hand-written kernels (K1 seed, K2 chase, K3 flood, K4 fused
    eval ConvBlock, K5 peak NMS, K6 training conv, the histograms H1-H3
-   of one-volume inference and the union-find closure U1) from
+   of one-volume inference, the union-find closure U1 and the saddle
+   merge's pair-table kernels M1/M2) from
    ``tpuseg_torch/csrc`` and print nvcc's per-kernel register report;
 3. each kernel against its plain PyTorch twin on the card, elementwise, at
    the main-path shape 96x512x512 (analytic maps of a 600-instance
@@ -101,11 +102,12 @@ Phases, in order; any failure raises and exits non-zero:
     with the synthesis time and the host's free memory: (a) AnalyticNet in
     float32, ``stream_infer(chunk_z=96)`` at the default halo equal to the
     one-shot ``make_infer_fn`` elementwise under default post-processing,
-    ``merge_saddle_ratio=0.8`` and ``nms_impl="pallas"`` (K5
-    launched); a run killed after chunk 1 and resumed into a memmap equal
-    to the uninterrupted one; a uint16 source equal to its float32 values;
-    (b) phase 9's trained U-Net through ``cli.infer --stream 96
-    --report-convergence --validate --calibrate-from`` with the fused apply
+    ``merge_saddle_ratio=0.8`` (M1 and M2 launched once a chunk) and
+    ``nms_impl="pallas"`` (K5 launched); a run killed after chunk 1 and
+    resumed into a memmap equal to the uninterrupted one; a uint16 source
+    equal to its float32 values; (b) phase 9's trained U-Net through
+    ``cli.infer --stream 96 --report-convergence --validate
+    --calibrate-from`` with the fused apply
     beside the one-shot ``cli.infer`` with the same flags: wall time,
     Mvox/s, stage seconds, peak device memory, instances and F1@IoU0.5 of
     both (the streamed one at most 0.02 below), F1 between the two, chase
@@ -225,24 +227,36 @@ Phases, in order; any failure raises and exits non-zero:
     ``torch.cuda.set_sync_debug_mode("error")`` after one warm call:
     labels, the truncation count and the merge's dropped counts equal the
     ``plain=True`` post-processing of the same sweep, one U1 launch a
-    call; (c) ``make_sharded_infer_fn``'s ``infer(shards)`` inside the
-    mode, shards on ``cuda:0``, meshes z2,y2 and z2, calibrated or not,
-    merge 0 or 0.8: AnalyticNet in float32 equal to the one-shot labels
-    (as [15a] holds them) and to ``plain=True``, phase 9's net under c3
-    (module apply) equal to ``plain=True``, U1 launched once a call and
-    once more with the merge; a z2 call with ``shard_max_labels=8`` prints
+    call, and M1 and M2 (``ops.merge.pair_aggregate`` / ``pair_slots``)
+    once each; (c) ``make_sharded_infer_fn``'s ``infer(shards)`` inside
+    the mode, shards on ``cuda:0``, meshes z2,y2 and z2, calibrated or
+    not, merge 0 or 0.8: AnalyticNet in float32 equal to the one-shot
+    labels (as [15a] holds them) and to ``plain=True`` (every twin, M1/M2's
+    too), phase 9's net under c3 (module apply) equal to ``plain=True``,
+    U1 launched once a call and once more with the merge, M1 and M2 once a
+    shard with the merge; a z2 call with ``shard_max_labels=8`` prints
     its overflow after the labels, in the reference's words; (d) warm
     times: the post stage with the merge off and at 0.8 on the same
-    logits, and calibrated c3's one-shot call beside its ``--shard z2,y2``
-    call (host enqueue and wall).
+    logits, with each one's peak device memory above the logits; the
+    merge at 0.8 on (b)'s inputs in its parts (edges: M1 + M2, closure:
+    U1, apply), the edges through the twin's whole-volume sorts, and the
+    whole merge's peak memory through each; and calibrated c3's one-shot
+    call beside its ``--shard z2,y2`` call (host enqueue and wall); (e)
+    M1 + M2 against their twin elementwise (``lo``, ``hi``, ``dropped``)
+    at merge 0.8, merged labels against ``plain=True``'s, on the analytic
+    maps' watershed, (b)'s merge inputs (seeded weights, calibrated c3),
+    the seeded weights at ``max_pairs`` 64 (every axis past its buffer:
+    the gated select route), a shard's grown core (a view, not contiguous)
+    and a 160x1024x1024 extended chunk, with each kernel's time beside the
+    twin's and its bound.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
 alone; no final record; 12 brings 4 with it, 13-19 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
-processes of phase 16 and on the touching fixtures of phase 17 (U1's: on
-the merge-on and sharded calls of phase 19 (b) and (c)), K2's and
+processes of phase 16 and on the touching fixtures of phase 17 (U1's, M1's
+and M2's: on the merge-on and sharded calls of phase 19 (b) and (c)), K2's and
 K3's passes run on the main path beside their launches, and its bound:
 the
 larger of its bytes over the card's memory rate and its operations over
@@ -305,7 +319,15 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     # U1 neither: the reference's XLA closure (hook and jump rounds)
     "union_closure": ("tpuseg_torch/csrc/closure.cu",
                       "tpuseg/parallel/reconcile.py:41"),
+    # nor M1/M2: the reference's XLA pair table (per-axis sorts of every
+    # face's pair key, compacted into max_pairs slots)
+    "pair_aggregate": ("tpuseg_torch/csrc/pairs.cu",
+                       "tpuseg/ops/merge.py:57"),
+    "pair_slots": ("tpuseg_torch/csrc/pairs.cu", "tpuseg/ops/merge.py:57"),
 }
+# the saddle merge's pair-table kernels (ops/merge.py), launched once each
+# by every merge-on call, once each a shard by a sharded one
+PAIR_KERNELS = ("pair_aggregate", "pair_slots")
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
 HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
@@ -385,6 +407,11 @@ TOUCHING_KERNELS = INFER_KERNELS + ("fused_convblock",)
 U1_MERGE_RATIO = 0.8
 U1_RANDOM_EDGES = (10 ** 3, 10 ** 4, 10 ** 5, 10 ** 6)
 U1_PATH_BITS = 20
+# phase 19 (e): M1/M2 at a max_pairs whose buffer (2 x max_pairs) every axis
+# of the stack overflows (the gated select route), and on one extended
+# chunk of the stream (160 planes: a 96-plane chunk, halo 32 each side)
+PAIR_TINY_MAX_PAIRS = 64
+PAIR_CHUNK_SHAPE = (160, 1024, 1024)
 SENT32 = 2 ** 31 - 1                    # an unused slot of the int32 tables
 RF_PROBE = 128                          # > 2 x the 4-level net's radius (~53)
 VARIANT_STEPS = 2                       # (g): cli.train steps of the variant
@@ -1654,7 +1681,8 @@ def phase_stream_analytic(sv, tmp: str) -> dict:
     post-processing, ``merge_saddle_ratio=0.8`` and
     ``nms_impl="pallas"``; a run killed after chunk 1 and resumed into a
     memmap equals the uninterrupted run; a uint16 source equals its float32
-    values. Returns the launches of the pallas stream (K5)."""
+    values. Returns the launches of the pallas stream (K5) and of the
+    merge's stream (M1 and M2, one each an extended chunk)."""
     import dataclasses
 
     from tpuseg_torch.core import Config, InferConfig
@@ -1666,7 +1694,7 @@ def phase_stream_analytic(sv, tmp: str) -> dict:
     settings = (("default", {}), ("merge_saddle_ratio=0.8",
                                   {"merge_saddle_ratio": 0.8}),
                 ('nms_impl="pallas"', {"nms_impl": "pallas"}))
-    default_labels, k5_launches = None, 0
+    default_labels, counted = None, {}
     for tag, post in settings:
         cfg = dataclasses.replace(base, postproc=dataclasses.replace(
             base.postproc, **post))
@@ -1704,11 +1732,17 @@ def phase_stream_analytic(sv, tmp: str) -> dict:
             default_labels = want
         else:
             if tag.startswith("nms"):
-                k5_launches = launches["fused_peak_nms"]
-                if not k5_launches or not np.array_equal(want,
-                                                         default_labels):
+                counted["fused_peak_nms"] = launches["fused_peak_nms"]
+                if not counted["fused_peak_nms"] or not np.array_equal(
+                        want, default_labels):
                     raise AssertionError("[14a] nms_impl=pallas: K5 not "
                                          "launched or labels != default")
+            else:
+                chunks = -(-sv.image.shape[0] // STREAM_CHUNK)
+                counted.update({k: launches[k] for k in PAIR_KERNELS})
+                if any(counted[k] != chunks for k in PAIR_KERNELS):
+                    raise AssertionError(f"[14a] {tag}: M1/M2 launched "
+                                         f"{counted}, not once a chunk")
             del want
 
     # killed after chunk 1, resumed into a memmap
@@ -1752,7 +1786,7 @@ def phase_stream_analytic(sv, tmp: str) -> dict:
         raise AssertionError("[14a] uint16 source != float32 source")
     print(f"[14a] uint16 source {cut.shape} == its float32 values "
           f"({int(a.max())} instances)")
-    return {"fused_peak_nms": k5_launches}
+    return counted
 
 
 def phase_stream_trained(sv, ckpt_dir: str, tmp: str) -> dict:
@@ -2000,7 +2034,7 @@ def phase_stream(ckpt_dir: str, tmp: str):
     launches = phase_stream_analytic(sv, tmp)       # K5's, under "pallas"
     _add_launches(launches, phase_stream_trained(sv, ckpt_dir, tmp))
     phase_stream_seams(sv, ckpt_dir, tmp)
-    return {k: launches[k] for k in STREAM_KERNELS}, sv
+    return {k: launches[k] for k in STREAM_KERNELS + PAIR_KERNELS}, sv
 
 
 def _add_launches(acc: dict, launches=None) -> None:
@@ -2874,8 +2908,11 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     shard_labels = phase_mp_infer(sv, ckpt_dir, vol_path, ann_path, tmp, acc)
     phase_mp_nccl(ckpt_dir, vol_path, ann_path, tmp, shard_labels, acc)
     # every kernel of a Pallas kernel; of the histograms, H3 counts labels
-    # for the one-volume filter only (the sharded paths compact packed ids)
-    missing = [k for k in KERNELS if k != "label_counts" and not acc.get(k)]
+    # for the one-volume filter only (the sharded paths compact packed ids);
+    # M1/M2 run with the saddle merge, which these legs leave off (phase 19
+    # holds them on the merge-on calls)
+    missing = [k for k in KERNELS if k not in ("label_counts",) + PAIR_KERNELS
+               and not acc.get(k)]
     if missing:
         raise AssertionError(f"[16] the multi-process paths never launched "
                              f"{missing}: {acc}")
@@ -4081,26 +4118,52 @@ def phase_union_closure(inputs) -> dict:
     return rec
 
 
-def phase_one_program_merge(seeded, model, vol, cfg, c3, acc: dict) -> dict:
+class MergeInputs:
+    """Within: every ``saddle_merge`` call of the one-volume post stage
+    (``infer.pipeline``) keeps its labels and peak map on ``.seen``: the
+    merge's inputs on the main path."""
+
+    def __enter__(self):
+        from tpuseg_torch.infer import pipeline
+
+        self.seen, self._merge = [], pipeline.saddle_merge
+
+        def kept(labels, peak_prob, *args, **kw):
+            self.seen.append((labels, peak_prob))
+            return self._merge(labels, peak_prob, *args, **kw)
+
+        pipeline.saddle_merge = kept
+        return self
+
+    def __exit__(self, *exc):
+        from tpuseg_torch.infer import pipeline
+
+        pipeline.saddle_merge = self._merge
+
+
+def phase_one_program_merge(seeded, model, vol, cfg, c3, acc: dict):
     """(b) ``make_infer_fn`` with merge 0.8 and diagnostics, inside
     ``set_sync_debug_mode("error")`` after one warm call, on the stack
     (fused apply, seeded weights) and calibrated c3 (phase 9's): labels,
     the truncation count and the merge's dropped counts equal the
     ``plain=True`` post-processing of the same sweep, run outside the
-    mode. U1's launches into ``acc``. Returns the calls' host enqueue and
-    wall ms."""
+    mode; U1, M1 and M2 launched once a call. Their launches into ``acc``.
+    Returns the calls' host enqueue and wall ms, and the merge's inputs
+    (labels, peak map) of each load, kept from the warm call."""
     from tpuseg_torch.infer import make_infer_fn, make_infer_stages
     from tpuseg_torch.ops.merge import saddle_merge
     from tpuseg_torch.utils import hard_sync
 
     merge = {"postproc.merge_saddle_ratio": U1_MERGE_RATIO}
-    walls = {}
+    walls, loads = {}, {}
     for tag, net, c in (("fused apply, seeded weights", seeded,
                          cfg.override(**{"infer.apply_impl": "fused"},
                                       **merge)),
                         ("calibrated c3", model, c3.override(**merge))):
         infer = make_infer_fn(net, c, with_diagnostics=True)
-        hard_sync(infer(vol)[0])                    # warm
+        with MergeInputs() as seen:
+            hard_sync(infer(vol)[0])                # warm
+        loads[tag] = seen.seen[0]
         _reset_launches()
         t0 = time.perf_counter()
         got, diag = no_host_reads(lambda: infer(vol))
@@ -4109,6 +4172,7 @@ def phase_one_program_merge(seeded, model, vol, cfg, c3, acc: dict) -> dict:
         walls[tag] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0))
         _add_launches(acc)
         n_u1 = _launches()["union_closure"]
+        n_pair = [_launches()[k] for k in PAIR_KERNELS]
         dropped = saddle_merge.last_dropped
         if diag["flood_truncated"].device.type != "cuda" or \
                 dropped.device.type != "cuda":
@@ -4123,13 +4187,14 @@ def phase_one_program_merge(seeded, model, vol, cfg, c3, acc: dict) -> dict:
         line = (f"[19] (b) make_infer_fn, {tag}, merge {U1_MERGE_RATIO}, "
                 f"with diagnostics: no host read, {int(got.max())} "
                 f"instances, truncated {int(diag['flood_truncated'])}, "
-                f"dropped {dropped.tolist()}; U1 launches {n_u1}; host "
-                f"enqueue {walls[tag][0]:.1f} ms, wall {walls[tag][1]:.1f} ms")
-        if not same or n_u1 != 1:
+                f"dropped {dropped.tolist()}; U1 launches {n_u1}, M1/M2 "
+                f"{n_pair}; host enqueue {walls[tag][0]:.1f} ms, wall "
+                f"{walls[tag][1]:.1f} ms")
+        if not same or n_u1 != 1 or n_pair != [1, 1]:
             raise AssertionError(line + f"; labels or counts != the twins' "
                                  f"({int((got != want).sum())} voxels)")
         print(line + "; labels and counts == the twins'", flush=True)
-    return walls
+    return walls, loads
 
 
 def _sharded_no_read(infer, shards, mesh):
@@ -4161,7 +4226,10 @@ def phase_sharded_no_read(sv, model, c3, acc: dict) -> None:
     equal to ``plain=True`` (with the module apply: the fused apply's twin
     rounds bf16 otherwise, phase 12); then a z2 call
     with ``shard_max_labels=8``, whose overflow prints after the labels in
-    the reference's words. U1's launches into ``acc``."""
+    the reference's words. ``plain=True`` runs every twin, M1 and M2's
+    too (the merge's on each shard's grown core, a view of its slab); the
+    call launches U1 once and once more with the merge, and M1 and M2 once
+    a shard with the merge. The launches into ``acc``."""
     import dataclasses
 
     from tpuseg_torch.core import Config, InferConfig
@@ -4200,6 +4268,7 @@ def phase_sharded_no_read(sv, model, c3, acc: dict) -> None:
                 got, printed = _sharded_no_read(infer, shards, mesh)
                 _add_launches(acc)
                 n_u1 = _launches()["union_closure"]
+                n_pair = [_launches()[k] for k in PAIR_KERNELS]
                 twin, _, _ = _sharded(net, cfg, mesh, vol, normalize=norm,
                                       plain=True)
                 tag = (f"{net_tag}, mesh {name}, "
@@ -4211,14 +4280,16 @@ def phase_sharded_no_read(sv, model, c3, acc: dict) -> None:
                         torch.from_numpy(vol).cuda()).cpu().numpy()
                     if not np.array_equal(got, want):
                         bad.append("one-shot")
-                if bad or n_u1 != 1 + (ratio > 0) or printed:
+                shards_merged = int(np.prod(shape)) * (ratio > 0)
+                if bad or n_u1 != 1 + (ratio > 0) or printed \
+                        or n_pair != [shards_merged] * 2:
                     raise AssertionError(
                         f"[19] (c) {tag}: labels != {bad}; U1 launches "
-                        f"{n_u1}; printed {printed!r}")
+                        f"{n_u1}, M1/M2 {n_pair}; printed {printed!r}")
                 print(f"[19] (c) {tag}: no host read, {int(got.max())} "
                       f"instances == plain=True"
                       + (" == one-shot" if net_tag == "AnalyticNet" else "")
-                      + f"; U1 launches {n_u1}", flush=True)
+                      + f"; U1 launches {n_u1}, M1/M2 {n_pair}", flush=True)
             del shards
     mesh = _card_mesh((2,))
     cfg = base.override(**{"infer.shard_max_labels": 8})
@@ -4236,16 +4307,55 @@ def phase_sharded_no_read(sv, model, c3, acc: dict) -> None:
           f"{printed.strip()}")
 
 
-def phase_merge_times(seeded, model, vol, cfg, c3) -> dict:
+def merge_split(labels, pk, max_pairs: int) -> dict:
+    """The merge at 0.8 on its main-path inputs in its three parts, ms
+    (CUDA events): the edges (M1 + M2), the closure (U1; of it, the key
+    table's sort and ``searchsorted`` front end), the apply
+    (``searchsorted``); the edges through the twin's sorts; and the peak
+    device memory above the inputs (MiB) of the whole merge through M1/M2
+    and through the twin's sorts with U1 (the merge before M1/M2)."""
+    from tpuseg_torch.ops.closure import _table, union_closure
+    from tpuseg_torch.ops.merge import apply_merge_table, saddle_merge_edges
+
+    r = U1_MERGE_RATIO
+
+    def edges(plain=False):
+        return saddle_merge_edges(labels, pk, r, max_pairs, plain=plain)
+
+    u, v, _ = edges()
+    keys, roots = union_closure(u, v)
+    out = {"edges_ms": cuda_ms(edges, 10),
+           "closure_ms": cuda_ms(lambda: union_closure(u, v), 10),
+           "closure_front_ms": cuda_ms(lambda: _table(u, v), 10),
+           "apply_ms": cuda_ms(lambda: apply_merge_table(labels, keys, roots),
+                               10),
+           "sort_edges_ms": cuda_ms(lambda: edges(True), 3)}
+    del u, v, keys, roots
+    for tag, plain in (("kernels", False), ("sorts", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e = edges(plain)
+        merged = apply_merge_table(labels, *union_closure(*e[:2]))
+        torch.cuda.synchronize()
+        out[f"peak_mib_{tag}"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2 ** 20
+        del e, merged
+    return out
+
+
+def phase_merge_times(seeded, model, vol, cfg, c3, loads) -> dict:
     """(d) warm times, in turns: the post stage with the merge off and at
-    0.8 on the same logits (the seeded weights' fused sweep, and c3's), and
-    calibrated c3 (phase 9's net, fused) through ``make_infer_fn`` beside
+    0.8 on the same logits (the seeded weights' fused sweep, and c3's),
+    with each run's peak device memory above its inputs; the merge on (b)'s
+    inputs of each in its parts (``merge_split``); and calibrated c3
+    (phase 9's net, fused) through ``make_infer_fn`` beside
     ``make_sharded_infer_fn`` on z2,y2: host enqueue and wall ms."""
     from tpuseg_torch.infer import (make_infer_fn, make_infer_stages,
                                     make_sharded_infer_fn, shard_volume)
     from tpuseg_torch.utils import hard_sync
 
-    post = {}
+    post, split = {}, {}
     for tag, net, c in (("seeded weights", seeded,
                          cfg.override(**{"infer.apply_impl": "fused"})),
                         ("calibrated c3", model, c3)):
@@ -4254,19 +4364,33 @@ def phase_merge_times(seeded, model, vol, cfg, c3) -> dict:
             **{"postproc.merge_saddle_ratio": r}))[2]
             for r in (0.0, U1_MERGE_RATIO)}
         runs = {r: [] for r in stages}
+        peaks = {r: [] for r in stages}
         for r in (0.0, U1_MERGE_RATIO, U1_MERGE_RATIO, 0.0):
             hard_sync(stages[r](logits))
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             stages[r](logits)
             torch.cuda.synchronize()
             runs[r].append(1e3 * (time.perf_counter() - t0))
+            peaks[r].append((torch.cuda.max_memory_allocated() - base)
+                            / 2 ** 20)
         post[tag] = runs
         print(f"[19] (d) post ms, {tag}: merge off "
               f"{', '.join(f'{t:.2f}' for t in runs[0.0])}; merge "
               f"{U1_MERGE_RATIO} "
-              f"{', '.join(f'{t:.2f}' for t in runs[U1_MERGE_RATIO])}")
+              f"{', '.join(f'{t:.2f}' for t in runs[U1_MERGE_RATIO])}; "
+              f"peak MiB above the logits: off "
+              f"{', '.join(f'{m:.1f}' for m in peaks[0.0])}, on "
+              f"{', '.join(f'{m:.1f}' for m in peaks[U1_MERGE_RATIO])}")
         del logits
+    for tag, (labels, pk) in loads.items():
+        split[tag] = merge_split(labels, pk, cfg.postproc.merge_max_pairs)
+        print(f"[19] (d) the merge at {U1_MERGE_RATIO}, {tag} "
+              f"({pk.dtype}): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in split[tag].items()),
+              flush=True)
     one = make_infer_fn(model, c3)
     mesh = _card_mesh((2, 2))
     shard = make_sharded_infer_fn(model, c3, mesh)
@@ -4289,7 +4413,115 @@ def phase_merge_times(seeded, model, vol, cfg, c3) -> dict:
         f"{tag}: host enqueue / wall "
         + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in r) + " ms"
         for tag, r in calls.items()))
-    return {"post_ms": post, "calls_ms": calls}
+    return {"post_ms": post, "calls_ms": calls, "merge_split": split}
+
+
+def pair_table_check(tag, labels, pk, max_pairs, core=None, basin=None,
+                     merged=True) -> dict:
+    """(e) on one load: M1 + M2 against the twin elementwise (``lo``,
+    ``hi``, ``dropped``) at merge 0.8, and with ``merged`` the merged
+    labels against ``plain=True``'s; then each kernel's time (CUDA events;
+    M2 alone on one M1 table) beside the twin's and each one's bound.
+    ``core``/``basin``: a shard's grown core, as ``saddle_merge_core_edges``
+    takes it. Returns the kernels' records and the table's counts."""
+    from tpuseg_torch.ops.merge import (pair_aggregate, pair_slots,
+                                        saddle_merge, saddle_merge_core_edges,
+                                        saddle_merge_edges)
+
+    r = U1_MERGE_RATIO
+    core = tuple(labels.shape) if core is None else tuple(core)
+
+    def twin():
+        if basin is None:
+            return saddle_merge_edges(labels, pk, r, max_pairs, plain=True)
+        return saddle_merge_core_edges(labels, pk, core, r, basin, max_pairs,
+                                       plain=True)
+
+    table = pair_aggregate(labels, pk, core, max_pairs)
+    got = pair_slots(table, pk if basin is None else basin, r, max_pairs)
+    want = twin()
+    faces, pairs = table.meta[:3].tolist(), table.meta[3:].tolist()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    routes = ["select" if p > 2 * max_pairs else "buffer" for p in pairs]
+    view = "" if labels.is_contiguous() else "(a view) "
+    line = (f"[19] (e) M1/M2 on {tag} {tuple(labels.shape)} {view}"
+            f"{pk.dtype}, max_pairs {max_pairs}: faces {faces}, distinct "
+            f"pairs {pairs}, routes {routes}, dropped {got[2].tolist()}, "
+            f"passing {int((got[0] != SENT32).sum())}")
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(line + f"; != the twin (max abs err {err})")
+    if merged and not torch.equal(
+            saddle_merge(labels, pk, r, max_pairs),
+            saddle_merge(labels, pk, r, max_pairs, plain=True)):
+        raise AssertionError(line + "; merged labels != plain=True's")
+    voxels = labels.numel()
+    used = sum(min(p, max_pairs) for p in pairs)
+    b1 = bound(voxels * (4 + pk.element_size()) + 12 * sum(pairs),
+               3 * voxels, F32_FLOPS)
+    b2 = bound(12 * sum(pairs) + 8 * used + 24 * max_pairs + 12, sum(pairs),
+               F32_FLOPS)
+    basin_ = pk if basin is None else basin
+    ms1 = cuda_ms(lambda: pair_aggregate(labels, pk, core, max_pairs), 10)
+    ms2 = cuda_ms(lambda: pair_slots(table, basin_, r, max_pairs), 10)
+    plain = cuda_ms(twin, 2)
+    also = ", merged labels == plain=True" if merged else ""
+    print(line + f"; == twin{also}; M1 {ms1:.4f} ms (bound "
+          f"{b1['bound_ms']:.4f}, {b1['bound_by']}),"
+          f" M2 {ms2:.4f} ms (bound {b2['bound_ms']:.4f}, {b2['bound_by']}),"
+          f" twin (the sorts) {plain:.3f} ms", flush=True)
+    return {"pair_aggregate": {"max_abs_err": err, "ms": ms1,
+                               "plain_ms": plain, "library_ms": None, **b1},
+            "pair_slots": {"max_abs_err": err, "ms": ms2, "plain_ms": plain,
+                           "library_ms": None, **b2},
+            "pairs": pairs}
+
+
+def phase_pair_table(sv, loads, cfg) -> dict:
+    """(e) M1/M2 (``ops.merge.pair_aggregate`` / ``pair_slots``) against
+    the twin elementwise, merged labels too, on: the analytic maps'
+    watershed of the stack, (b)'s merge inputs (seeded weights, fused;
+    calibrated c3), the seeded weights at ``max_pairs`` 64 (every axis
+    takes the select route), a grown core cut from the seeded weights'
+    labels as a z2,y2 shard's is from its slab (a view, 49x257x512 from
+    (24, 128, 0), core 48x256x512; the stack's peaks as the basins'
+    maxima) and a 160x1024x1024 extended chunk (the stack tiled, analytic
+    maps). Returns M1's and M2's records on the seeded weights, the main
+    path's load."""
+    from tpuseg_torch.ops import watershed
+
+    pp = cfg.postproc
+    mp = pp.merge_max_pairs
+
+    def analytic_labels(image):
+        fg, pk = analytic_maps(image, "cuda")
+        return watershed(fg, pk, peak_threshold=pp.peak_threshold,
+                         fg_threshold=pp.fg_threshold,
+                         peak_radius=pp.nms_radius), pk
+
+    out = None
+    lab, pk = analytic_labels(sv.image)
+    pair_table_check("the analytic maps", lab, pk, mp)
+    for tag, (lab, pk) in loads.items():
+        recs = pair_table_check(tag, lab, pk, mp)
+        if tag.endswith("seeded weights"):
+            out = recs
+    lab, pk = loads["fused apply, seeded weights"]
+    tiny = pair_table_check("seeded weights", lab, pk, PAIR_TINY_MAX_PAIRS)
+    if not all(p > 2 * PAIR_TINY_MAX_PAIRS for p in tiny["pairs"]):
+        raise AssertionError("[19] (e) max_pairs 64 missed the select route")
+    d, h, _ = lab.shape
+    view = (slice(d // 4, d // 4 + d // 2 + 1), slice(h // 4, h // 4 + h // 2
+                                                     + 1))
+    pair_table_check("a grown core of z2,y2", lab[view], pk[view], mp,
+                     core=(d // 2, h // 2, lab.shape[2]),
+                     basin=pk.float().reshape(-1), merged=False)
+    image = np.tile(sv.image, (2, 2, 2))[:PAIR_CHUNK_SHAPE[0]]
+    lab, pk = analytic_labels(image)
+    del image
+    pair_table_check("an extended chunk (the stack tiled)", lab, pk, mp)
+    del lab, pk
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_device_merge(sv, ckpt_dir: str, ann_path: str, tmp: str):
@@ -4313,15 +4545,18 @@ def phase_device_merge(sv, ckpt_dir: str, ann_path: str, tmp: str):
     model = trained_model(ckpt_dir, c3)
     c3 = calibrated(c3, ann_path, vol.numel())
     acc = {}
-    phase_one_program_merge(seeded, model, vol, cfg, c3, acc)
+    _, loads = phase_one_program_merge(seeded, model, vol, cfg, c3, acc)
     phase_sharded_no_read(sv, model, c3, acc)
-    if not acc.get("union_closure"):
-        raise AssertionError("[19] the merge and sharded calls never "
-                             "launched U1")
-    times = phase_merge_times(seeded, model, vol, cfg, c3)
-    del seeded, model, vol
+    for k in ("union_closure",) + PAIR_KERNELS:
+        if not acc.get(k):
+            raise AssertionError(f"[19] the merge and sharded calls never "
+                                 f"launched {k}")
+    times = phase_merge_times(seeded, model, vol, cfg, c3, loads)
+    recs = {"union_closure": rec, **phase_pair_table(sv, loads, cfg)}
+    del recs["pairs"], seeded, model, vol, loads
     torch.cuda.empty_cache()
-    return rec, acc["union_closure"], times
+    return recs, {k: acc[k] for k in ("union_closure",) + PAIR_KERNELS}, \
+        times
 
 
 def _timed(label, fn, *args):
@@ -4408,9 +4643,10 @@ def main(argv=None):
                 kernels.update(hist_recs)
             del c5
             if want(19):
-                (kernels["union_closure"], launches["union_closure"],
-                 _) = _timed("phase 19", phase_device_merge, sv, trained[0],
-                             trained[2], tmp)
+                recs, counts, _ = _timed("phase 19", phase_device_merge, sv,
+                                         trained[0], trained[2], tmp)
+                kernels.update(recs)
+                launches.update(counts)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(11):

@@ -24,7 +24,7 @@ from tpuseg.ops.merge import saddle_merge_edges as ref_edges
 from tpuseg.ops.merge import saddle_merge_table as ref_table
 from tpuseg_torch.ops import (apply_merge_table, saddle_merge,
                               saddle_merge_edges, saddle_merge_table)
-from tpuseg_torch.ops.merge import saddle_merge_axis_edges
+from tpuseg_torch.ops.merge import saddle_merge_axis_edges_plain
 
 from test_torch_model import single_torch_thread  # noqa: F401
 
@@ -89,8 +89,8 @@ def test_edges_per_axis_equal_reference(case, ratio):
     want = _ref_axis_sets(lab, pk, ratio, MAX_PAIRS)
     lab_t, pk_t = torch.from_numpy(lab), torch.from_numpy(pk)
     for axis in range(3):
-        lo, hi, _ = saddle_merge_axis_edges(lab_t, pk_t, ratio, axis,
-                                            MAX_PAIRS)
+        lo, hi, _ = saddle_merge_axis_edges_plain(lab_t, pk_t, ratio, axis,
+                                                  MAX_PAIRS)
         assert lo.dtype == torch.int32
         assert _used(lo, hi) == want[axis]
     e_lo, e_hi, _ = saddle_merge_edges(lab_t, pk_t, ratio, MAX_PAIRS)
@@ -138,8 +138,8 @@ def test_cap_drops_the_same_pairs_and_warns(max_pairs):
     for axis in range(3):
         with pytest.warns(UserWarning, match=f"on axis {axis} exceed "
                                              f"max_pairs={max_pairs}"):
-            lo, hi, _ = saddle_merge_axis_edges(lab_t, pk_t, 0.0, axis,
-                                                max_pairs)
+            lo, hi, _ = saddle_merge_axis_edges_plain(lab_t, pk_t, 0.0,
+                                                      axis, max_pairs)
         assert len(lo) == max_pairs
         assert _used(lo, hi) == want[axis]
     np.testing.assert_array_equal(

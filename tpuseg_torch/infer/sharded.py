@@ -114,7 +114,7 @@ def _core(t: torch.Tensor, halo: int, sizes) -> torch.Tensor:
 
 
 def _merge_edges(parts, keys, edges, cap: int, n_shards: int, pp,
-                 core):
+                 core, plain: bool):
     """The saddle merge of the reconciled basins, as packed-id edges: the
     overlap-plane closure groups the shards' basins (a basin two shards
     see whole is one group, named by its root); each group's maximum is
@@ -138,7 +138,7 @@ def _merge_edges(parts, keys, edges, cap: int, n_shards: int, pp,
         g = group.to(dev)[t["packed"].long()]
         lo, hi, d = saddle_merge_core_edges(
             g, t.pop("grown_peak"), core, pp.merge_saddle_ratio,
-            gval.to(dev), max_pairs=pp.merge_max_pairs)
+            gval.to(dev), max_pairs=pp.merge_max_pairs, plain=plain)
         r = rep.to(dev)
         out.append(torch.stack([
             torch.where(e != SENT, r[e.long().clamp_(max=m - 1)], 0)
@@ -318,7 +318,7 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         if merging:                              # 7
             more, infer.last_merge_dropped = _merge_edges(
                 list(parts.values()), keys, edges, cap, mesh.size, pp,
-                sizes + shape[len(axes):])
+                sizes + shape[len(axes):], plain)
             edges += more
         # 8: global union, size filter, dense numbering
         return packed_compact_labels(list(core_p.values()), keys,

@@ -2,8 +2,8 @@
 watershed (with the K1-K3 kernels; see ``ops/watershed.py``), saddle merge,
 connected components, instance sizes and the size filter, compact relabel,
 the histograms of one-volume inference (H1-H3, ``ops/hist.py``), the
-union-find closure of the merge and the sharded paths (U1,
-``ops/closure.py``), the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
+saddle merge's pair table (M1, M2, ``ops/merge.py``), the union-find
+closure of the merge and the sharded paths (U1, ``ops/closure.py``), the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies share the weight
 layout of ``ops/conv_mma.py``."""
 
@@ -17,7 +17,8 @@ from tpuseg_torch.ops.components import (connected_components,
 from tpuseg_torch.ops.filter import (label_sizes, max_seed_count, size_filter,
                                      size_filter_and_compact)
 from tpuseg_torch.ops.hist import bin_counts, label_counts, percentiles
-from tpuseg_torch.ops.merge import (apply_merge_table, saddle_merge,
+from tpuseg_torch.ops.merge import (apply_merge_table, pair_aggregate,
+                                    pair_slots, saddle_merge,
                                     saddle_merge_edges, saddle_merge_table)
 from tpuseg_torch.ops.nms import fused_peak_nms
 from tpuseg_torch.ops.peaks import peak_nms, radius3, seed_labels_from_peaks
@@ -33,7 +34,7 @@ from tpuseg_torch.ops.watershed import (ascent_labels,
 #: ``.launches`` counter
 KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
-                   label_counts, union_closure)
+                   label_counts, union_closure, pair_aggregate, pair_slots)
 
 __all__ = [
     "KERNEL_WRAPPERS", "apply_merge_table", "ascent_labels", "bin_counts",
@@ -43,7 +44,7 @@ __all__ = [
     "flood_truncation_count", "fold_bn_affine", "fused_convblock",
     "fused_convblock_plain", "fused_peak_nms", "label_components",
     "label_counts", "label_sizes", "labels_are_connected", "max_seed_count",
-    "peak_nms", "percentiles",
+    "pair_aggregate", "pair_slots", "peak_nms", "percentiles",
     "radius3", "saddle_merge", "saddle_merge_edges", "saddle_merge_table",
     "seed_chase_pass", "seed_labels_from_peaks", "size_filter",
     "size_filter_and_compact", "steepest_dir_codes", "union_closure",

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of csrc/*.cu's entry points; every pointer and the stream are
 # void* so ctypes never truncates them to 32 bits
 SIGNATURES = {
@@ -57,6 +58,10 @@ SIGNATURES = {
     "tpuseg_percentiles": [_P, _I, _I, _L, _P, _P, _P, _I, _P, _P],
     "tpuseg_label_counts": [_P, _L, _P, _P],
     "tpuseg_union_closure": [_P, _P, _L, _P, _P, _P, _L, _I, _P],
+    "tpuseg_pair_aggregate": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _P],
+    "tpuseg_pair_select": [_P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "tpuseg_pair_slots": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _F, _L, _L,
+                          _P, _P, _P, _P],
 }
 
 

@@ -6,9 +6,10 @@ On the watershed labels of the 96x512x512 synthetic stack under the default
 post-processing — the analytic maps (600 nuclei) and the full default U-Net
 with seeded weights (thousands of small basins) — times
 ``ops.merge.saddle_merge`` at ratio 0.8 (host clock to
-``torch.cuda.synchronize()``, after a warm-up) and prints one JSON line with
-the times, a checksum of the merged labels and the card's name and power
-limit. ``--root`` imports ``tpuseg_torch`` from another checkout (an
+``torch.cuda.synchronize()``, after a warm-up) and its peak device memory
+above its inputs (``torch.cuda.max_memory_allocated``), and prints one JSON
+line with the times, the peak, a checksum of the merged labels and the
+card's name and power limit. ``--root`` imports ``tpuseg_torch`` from another checkout (an
 unpacked ``git archive`` of another commit): run it in turns with and
 without, each in its own process, to compare two versions of the merge on
 the same card; equal checksums mean equal labels (to the sum's resolution).
@@ -68,7 +69,15 @@ def main() -> int:
                            fg_threshold=pp.fg_threshold,
                            peak_radius=pp.nms_radius)
         merged = saddle_merge(labels, pk, RATIO, pp.merge_max_pairs)
+        del merged
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        merged = saddle_merge(labels, pk, RATIO, pp.merge_max_pairs)
+        torch.cuda.synchronize()
         rec[load] = {
+            "peak_mib_above_inputs": round(
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 20, 1),
             "saddle_merge_ms": wall_ms(lambda: saddle_merge(
                 labels, pk, RATIO, pp.merge_max_pairs), REPS),
             "labels_before": int(torch.unique(labels).numel()),
