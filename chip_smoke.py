@@ -206,11 +206,13 @@ Phases, in order; any failure raises and exits non-zero:
     chains climb 1117 hops); (d) ``make_infer_fn`` on the stack (plain and
     fused apply with seeded weights, calibrated c3 with phase 9's) and
     ``make_batched_infer_fn`` on the five c5 fixtures, each call inside
-    ``torch.cuda.set_sync_debug_mode("error")`` after one warm call: no
+    ``torch.cuda.set_sync_debug_mode("error")`` after one warm call (so
+    the call in the mode is the one that captures the CUDA graph): no
     PyTorch call may wait for the device, and the labels equal the twins'
     post-processing of the same sweep run outside the mode (the fused
     sweep's own twin rounds bf16 otherwise: phase 12); (e) warm times: the
-    batched call against five single calls (host enqueue and wall), the
+    batched call against five single calls (host enqueue and wall; both
+    replays of their graphs), the
     main-path calls of (d), and the seeded-weights resolves gated on the
     device against the same pass kernels in a host-read loop, with the
     chase's idle pass (128 idle passes against 2).
@@ -241,17 +243,46 @@ Phases, in order; any failure raises and exits non-zero:
     merge at 0.8 on (b)'s inputs in its parts (edges: M1 + M2, closure:
     U1, apply), the edges through the twin's whole-volume sorts, and the
     whole merge's peak memory through each; and calibrated c3's one-shot
-    call beside its ``--shard z2,y2`` call (host enqueue and wall); (e)
+    call beside its ``--shard z2,y2`` call (host enqueue and wall; both
+    replays of their graphs); (e)
     M1 + M2 against their twin elementwise (``lo``, ``hi``, ``dropped``)
     at merge 0.8, merged labels against ``plain=True``'s, on the analytic
     maps' watershed, (b)'s merge inputs (seeded weights, calibrated c3),
     the seeded weights at ``max_pairs`` 64 (every axis past its buffer:
     the gated select route), a shard's grown core (a view, not contiguous)
     and a 160x1024x1024 extended chunk, with each kernel's time beside the
-    twin's and its bound.
+    twin's and its bound;
+20. (run after phase 9, with its checkpoint, and after phase 17, with its
+    fixtures, where it ran; before 18) the inference calls as captured
+    CUDA graphs (``tpuseg_torch/infer/graph.py``): each factory's function
+    called on one input twice (first sight runs eagerly, the second call
+    captures) and then on other inputs (replays), every call inside
+    ``set_sync_debug_mode("error")``: each replay's outputs, the state it
+    leaves (the loops' gates, the merge's dropped counts, a sharded call's
+    overflow and dropped counts) and the wrapper counters equal the eager
+    body's (``.eager``) on the same input bitwise. Cases: the main stack
+    (plain and fused apply, seeded weights; replayed on
+    ``synthesize_volume(seed=1)``), the fused one under
+    ``program="staged"`` (two graphs, labels == "fused"), calibrated c3
+    with diagnostics, c5 fixtures 2-5 on fixture 1's graph (merge 0.8,
+    diagnostics), ``make_batched_infer_fn`` on the five c5 fixtures
+    (replayed rolled by one), ``make_sharded_infer_fn`` on z2,y2 and z2,
+    every shard on ``cuda:0``, with AnalyticNet in float32 (calibrated,
+    merge 0.8) and calibrated c3, and a z2 call captured at ``z_offset``
+    0 and replayed at 3e6 and 2^31 (one graph); each with its mode, the
+    capture's time and reserved pool, and, warm, eager against replay in
+    turns (host enqueue and wall ms) with the memory each holds: the
+    eager call's reserved growth from an emptied cache and its peak above
+    the live tensors, the replay's pool (held while the graph lives) and
+    its peak above the live tensors. Then the settings that never capture:
+    ``make_infer_fn``, ``infer_volume`` and the one-device sharded call
+    under ``postproc.resolve_impl="xla"`` (whose flood reads the host a
+    pass) called three times each on the card, every call eager and equal;
+    and a c3 program whose model's parameter storage moves after its
+    replays: it releases its graph and runs eagerly again, labels equal.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-19 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-20 bring 9). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
@@ -3439,10 +3470,12 @@ def _run_cli_infer(tmp, ckpt, vol_path, tag, *sets):
     return np.load(out_path), launches, status
 
 
-def profile_device_time(label: str, fn, top: int = 8, phase: int = 12) -> None:
+def profile_device_time(label: str, fn, top: int = 8, phase: int = 12,
+                        parts=()) -> None:
     """Print where the device time of one warm ``fn()`` goes: the kernels by
     name, from ``torch.profiler`` (informational; a profiler that sees no
-    device time prints "not measured")."""
+    device time prints "not measured"), and the summed time of the kernels
+    whose names hold each of ``parts`` (case ignored)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3465,6 +3498,10 @@ def profile_device_time(label: str, fn, top: int = 8, phase: int = 12) -> None:
           f"top {top} by device time:")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"       {ms:9.2f} ms {100 * ms / total:5.1f}%  {key[:90]}")
+    for part in parts:
+        ms = sum(v for k, v in kernels.items() if part in k.lower())
+        print(f"       {ms:9.2f} ms {100 * ms / total:5.1f}%  all kernels "
+              f"named *{part}*")
 
 
 def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
@@ -3998,7 +4035,8 @@ def phase_one_program(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
         print(f"[18] (d) make_infer_fn, {tag}: no host read (sync debug mode"
               f" 'error'), {int(got.max())} instances, labels == the twins' "
               f"post-processing of the same sweep; chase / flood passes run "
-              f"{ran[0]} / {ran[1]}; host enqueue {walls[tag][0]:.1f} ms, "
+              f"{ran[0]} / {ran[1]}; the call that captures the graph "
+              f"({infer.last_run}): host enqueue {walls[tag][0]:.1f} ms, "
               f"wall {walls[tag][1]:.1f} ms")
     bcfg = cfgs["touch60_snr20"]
     batched, single = (make_batched_infer_fn(model, bcfg),
@@ -4020,7 +4058,10 @@ def phase_one_program(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
           "labels == the twins' post-processing per volume; chase / flood "
           f"passes run {ran[0]} / {ran[1]} in all")
 
-    # (e) warm times, in turns
+    # (e) warm times, in turns: replays of the captured graphs (the batched
+    # call captured in (d); a single call's graph captured here)
+    for _ in range(2):
+        hard_sync(single(vols[0]))
     runs = {"batched": [], "five single calls": []}
     for tag in ("batched", "five single calls", "five single calls",
                 "batched"):
@@ -4034,7 +4075,7 @@ def phase_one_program(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         runs[tag].append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)))
-    print("[18] (e) " + "; ".join(
+    print("[18] (e) replays: " + "; ".join(
         f"{tag}: host enqueue / wall "
         + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in r) + " ms"
         for tag, r in runs.items()))
@@ -4350,7 +4391,8 @@ def phase_merge_times(seeded, model, vol, cfg, c3, loads) -> dict:
     with each run's peak device memory above its inputs; the merge on (b)'s
     inputs of each in its parts (``merge_split``); and calibrated c3
     (phase 9's net, fused) through ``make_infer_fn`` beside
-    ``make_sharded_infer_fn`` on z2,y2: host enqueue and wall ms."""
+    ``make_sharded_infer_fn`` on z2,y2, replays of their graphs: host
+    enqueue and wall ms."""
     from tpuseg_torch.infer import (make_infer_fn, make_infer_stages,
                                     make_sharded_infer_fn, shard_volume)
     from tpuseg_torch.utils import hard_sync
@@ -4395,8 +4437,9 @@ def phase_merge_times(seeded, model, vol, cfg, c3, loads) -> dict:
     mesh = _card_mesh((2, 2))
     shard = make_sharded_infer_fn(model, c3, mesh)
     shards = shard_volume(vol.cpu().numpy(), mesh)
-    hard_sync(one(vol))
-    hard_sync(shard(shards))
+    for _ in range(2):                  # eager, then the capture
+        hard_sync(one(vol))
+        hard_sync(shard(shards))
     calls = {"one-shot": [], "--shard z2,y2": []}
     for tag in ("one-shot", "--shard z2,y2", "--shard z2,y2", "one-shot"):
         torch.cuda.synchronize()
@@ -4409,7 +4452,7 @@ def phase_merge_times(seeded, model, vol, cfg, c3, loads) -> dict:
         torch.cuda.synchronize()
         calls[tag].append((1e3 * (t1 - t0),
                            1e3 * (time.perf_counter() - t0)))
-    print("[19] (d) calibrated c3, fused: " + "; ".join(
+    print("[19] (d) calibrated c3, fused, replays: " + "; ".join(
         f"{tag}: host enqueue / wall "
         + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in r) + " ms"
         for tag, r in calls.items()))
@@ -4559,6 +4602,340 @@ def phase_device_merge(sv, ckpt_dir: str, ann_path: str, tmp: str):
         times
 
 
+def _same(a, b) -> bool:
+    """Bitwise equality of two nests of tensors (lists, tuples, dicts)."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return a == b
+
+
+def _all_counts() -> dict:
+    """Every wrapper counter since the last reset: launches and the
+    tensor-core and tile-pass bodies'."""
+    return {**_launches(),
+            **{f"{k} (mma)": n for k, n in _mma_launches().items()},
+            **{f"{k} (tile)": n for k, n in _tile_launches().items()}}
+
+
+def _call_state(holder=None) -> dict:
+    """The state the last call left on the wrappers (and on a sharded
+    function ``holder``), cloned."""
+    from tpuseg_torch.ops import merge, resolve
+
+    state = {"chase gates": resolve.chase_resolve.last_gates,
+             "flood gates": resolve.flood_resolve.last_gates,
+             "merge dropped": merge.saddle_merge.last_dropped}
+    if holder is not None:
+        state["overflow"] = holder.last_overflow
+        state["sharded merge dropped"] = holder.last_merge_dropped
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in state.items()}
+
+
+def _program_of(fn):
+    """The captured program(s) behind a factory's function."""
+    return getattr(fn, "program", fn)
+
+
+def graph_case(tag, fn, eager, inputs, timed=True, holder=None) -> dict:
+    """One case of phase 20: ``fn`` (a factory's function) on ``inputs[0]``
+    twice (first sight: eager; then the capture), then on each other input
+    (replays), every call inside ``set_sync_debug_mode("error")``; each
+    replay's outputs, the state it leaves and the wrapper counters equal
+    ``eager``'s on the same input, bitwise. Then warm eager against replay
+    in turns (host enqueue and wall ms), the capture's time and reserved
+    pool, and the peak memory above the live tensors of an eager call and
+    of a replay, and the eager call's reserved growth from an emptied
+    cache (its own memory, as the pool is the graph's). ``inputs``:
+    argument tuples."""
+    from tpuseg_torch.utils import hard_sync
+
+    prog = _program_of(fn)
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    hard_sync(no_host_reads(lambda: fn(*inputs[0])))
+    eager_reserved = torch.cuda.memory_reserved() - reserved
+    runs.append(prog.last_run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hard_sync(no_host_reads(lambda: fn(*inputs[0])))
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    runs.append(prog.last_run)
+    pool = sum(g.stats["reserved_bytes"] for g in prog.graphs.values())
+    graph_capture_ms = 1e3 * sum(g.stats["capture_s"]
+                                 for g in prog.graphs.values())
+    counts = None
+    for k, x in enumerate(inputs[1:]):
+        _reset_launches()
+        got = no_host_reads(lambda: fn(*x))
+        hard_sync(got)
+        runs.append(prog.last_run)
+        replay_counts, replay_state = _all_counts(), _call_state(holder)
+        _reset_launches()
+        want = hard_sync(eager(*x))
+        counts = _all_counts()
+        if not _same(got, want) or not _same(replay_state,
+                                             _call_state(holder)):
+            raise AssertionError(f"[20] {tag}: the replay on input {k + 1} "
+                                 "!= the eager body's (outputs or state)")
+        if replay_counts != counts:
+            raise AssertionError(f"[20] {tag}: replay counters "
+                                 f"{replay_counts} != eager {counts}")
+    if any(not r.endswith("replay") for r in runs[2:]) or \
+            not runs[0].endswith("first sight") or \
+            not runs[1].endswith("capture"):
+        raise AssertionError(f"[20] {tag}: the calls ran {runs}")
+    rec = {"runs": runs, "capture_call_ms": capture_ms,
+           "capture_ms": graph_capture_ms, "pool_bytes": pool,
+           "eager_reserved_bytes": eager_reserved,
+           "launches": sum(counts.values())}
+    line = (f"[20] {tag}: calls ran {' / '.join(runs)}; {len(inputs) - 1} "
+            "replays on other inputs == the eager body bitwise (outputs, "
+            "state, counters), sync debug mode 'error'; capture call "
+            f"{capture_ms:.1f} ms (capture {graph_capture_ms:.1f}); memory "
+            f"held: pool {pool / 2 ** 20:.1f} MiB while the graph lives, "
+            f"the eager call's reserved growth {eager_reserved / 2 ** 20:.1f}"
+            " MiB")
+    if timed:
+        x = inputs[-1]
+        peaks, times = {}, {"eager": [], "replay": []}
+        for which in ("eager", "replay", "replay", "eager"):
+            call = eager if which == "eager" else fn
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = call(*x)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[which].append((1e3 * (t1 - t0),
+                                 1e3 * (time.perf_counter() - t0)))
+            peaks[which] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            del out
+        rec.update(times=times, peak_mib=peaks)
+        line += ("; warm host enqueue / wall ms: " + "; ".join(
+            f"{w} " + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in r)
+            for w, r in times.items())
+            + "; peak above the live tensors MiB: eager "
+            f"{peaks['eager']:.1f}, replay {peaks['replay']:.1f} (+ the "
+            f"pool: {peaks['replay'] + pool / 2 ** 20:.1f})")
+    print(line, flush=True)
+    return rec
+
+
+def graph_restarts(fn, model, vols) -> None:
+    """Phase 20: after ``fn``'s replays, one of ``model``'s parameters
+    moves to new storage (the old one still held, so the address differs):
+    the program releases its graph, runs eagerly, captures anew and
+    replays, each call equal to the eager body; then the host time of the
+    state read each call makes."""
+    from tpuseg_torch.infer.graph import module_state
+    from tpuseg_torch.utils import hard_sync
+
+    param = next(model.parameters())
+    old, param.data = param.data, param.data.clone()
+    runs = []
+    for v in (vols[1], vols[0], vols[1]):
+        got = hard_sync(no_host_reads(lambda: fn(v)))
+        runs.append(fn.last_run)
+        if len(runs) == 1 and fn.graphs:
+            raise AssertionError("[20] moved weights: the graph was kept")
+        if not _same(got, hard_sync(fn.eager(v))):
+            raise AssertionError("[20] moved weights: labels != the eager "
+                                 "body's")
+    if runs != ["eager: first sight", "capture", "replay"]:
+        raise AssertionError(f"[20] moved weights: the calls ran {runs}")
+    del old
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        module_state(model)
+    read_us = 1e3 * (time.perf_counter() - t0)
+    print("[20] c3's parameter moved to new storage after the replays: the "
+          f"program released its graph, calls ran {' / '.join(runs)}, each "
+          f"== the eager body; the model-state read each call costs "
+          f"{read_us:.1f} us of host time (mean of 1000)", flush=True)
+
+
+def never_captured(model, c3, analytic, base, vols, norm) -> None:
+    """Phase 20: the settings whose body reads the host run eagerly on
+    every call on the card and say so: ``make_infer_fn`` and
+    ``infer_volume`` under calibrated c3, the z2 sharded call under
+    AnalyticNet, each with ``postproc.resolve_impl="xla"``, three calls
+    (inputs 0, 1, 0) each: the first and third equal, the one-shot
+    entries equal to each other."""
+    from tpuseg_torch.infer import (infer_volume, make_infer_fn,
+                                    make_sharded_infer_fn,
+                                    release_infer_volume, shard_volume)
+    from tpuseg_torch.infer.graph import eager_reason
+    from tpuseg_torch.utils import hard_sync
+
+    xc3 = c3.override(**{"postproc.resolve_impl": "xla"})
+    mode = eager_reason(xc3)
+    fn = make_infer_fn(model, xc3)
+    mesh = _card_mesh((2,))
+    sharded = make_sharded_infer_fn(
+        analytic, base.override(**{"postproc.resolve_impl": "xla"}), mesh,
+        normalize=False)
+    t0 = time.perf_counter()
+    outs = {"make_infer_fn": [], "infer_volume": [], "--shard z2": []}
+    for i in (0, 1, 0):
+        outs["make_infer_fn"].append(hard_sync(fn(vols[i])))
+        outs["infer_volume"].append(hard_sync(infer_volume(
+            model, vols[i], xc3, device=vols[i].device)))
+        program = model._infer_volume_programs[xc3, True]
+        outs["--shard z2"].append(hard_sync(sharded(shard_volume(norm[i],
+                                                                 mesh))))
+        for f in (fn, program):
+            if f.mode != mode or f.last_run != mode or f.graphs:
+                raise AssertionError(f"[20] resolve_impl='xla': a call ran "
+                                     f"{f.last_run!r}, mode {f.mode!r}, "
+                                     f"{len(f.graphs)} graphs")
+        if sharded.mode != mode or hasattr(sharded, "program"):
+            raise AssertionError(f"[20] resolve_impl='xla': sharded mode "
+                                 f"{sharded.mode!r}")
+    for name, o in outs.items():
+        if not _same(o[0], o[2]):
+            raise AssertionError(f"[20] resolve_impl='xla', {name}: the "
+                                 "third call != the first")
+    if not _same(outs["make_infer_fn"], outs["infer_volume"]):
+        raise AssertionError("[20] resolve_impl='xla': infer_volume != "
+                             "make_infer_fn")
+    release_infer_volume(model)
+    print(f"[20] postproc.resolve_impl='xla' ({mode}): make_infer_fn, "
+          "infer_volume (calibrated c3) and the z2 sharded call (AnalyticNet)"
+          " three calls each on the card, every call eager, no graph, the "
+          f"first == the third ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def phase_graphs(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
+    """Phase 20: the inference calls as captured CUDA graphs (module
+    docstring). Returns the cases' records."""
+    import dataclasses
+
+    from tpuseg_torch.ckpt import load_pth
+    from tpuseg_torch.cli.infer import calibrated
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.data import synthesize_touching_volume, synthesize_volume
+    from tpuseg_torch.data.normalize import histogram_percentile_normalize
+    from tpuseg_torch.infer import (make_batched_infer_fn, make_infer_fn,
+                                    make_sharded_infer_fn, shard_volume)
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.ops.calibrate import expected_fg_fraction
+
+    cfg = Config()
+    ckpt = os.path.join(tmp, "seeded20.pth")
+    write_seeded_checkpoint(ckpt, cfg.model)
+    seeded = build_model(cfg.model)
+    seeded.load_state_dict(load_pth(ckpt))
+    seeded.cuda()
+    other = synthesize_volume(shape=MAIN_SHAPE, num_instances=NUM_INSTANCES,
+                              seed=SEED + 1)
+    vols = [torch.from_numpy(v.image).cuda() for v in (sv, other)]
+    if fixtures is None:
+        fixtures = {name: synthesize_touching_volume(**C5_KW, **kw)
+                    for name, kw in C5_FIXTURES.items()}
+    c3, cfgs = c5_configs(fixtures)
+    model = trained_model(ckpt_dir, c3)
+    c3 = calibrated(c3, ann_path, vols[0].numel())
+    c5 = torch.stack([torch.from_numpy(tv.image)
+                      for tv in fixtures.values()]).cuda()
+    recs = {}
+
+    def one_shot(tag, net, c, inputs, timed=True, **kw):
+        fn = make_infer_fn(net, c, **kw)
+        recs[tag] = graph_case(tag, fn, fn.eager, inputs, timed)
+        return fn
+
+    pairs = [(v,) for v in vols]
+    one_shot("main stack, plain apply", seeded,
+             cfg.override(**{"infer.apply_impl": "flax"}), pairs)
+    fused = one_shot("main stack, fused apply", seeded,
+                     cfg.override(**{"infer.apply_impl": "fused"}), pairs)
+    staged = one_shot("main stack, fused apply, program='staged'", seeded,
+                      cfg.override(**{"infer.apply_impl": "fused",
+                                      "infer.program": "staged"}), pairs)
+    if not torch.equal(staged(vols[1]), fused(vols[1])) or \
+            len(staged.graphs) != 2:
+        raise AssertionError("[20] program='staged' != 'fused', or not two "
+                             "graphs")
+    print("[20] program='staged': two graphs, labels == 'fused'", flush=True)
+    c3_fn = one_shot("calibrated c3, with diagnostics", model, c3, pairs,
+                     with_diagnostics=True)
+    graph_restarts(c3_fn, model, vols)
+    bcfg = cfgs["touch60_snr20"]
+    one_shot("c5 under calibrated c3, merge 0.8, with diagnostics "
+             "(fixtures 2-5 replay fixture 1's graph)", model,
+             bcfg.override(**{"postproc.merge_saddle_ratio": U1_MERGE_RATIO}),
+             [(v,) for v in c5], timed=False, with_diagnostics=True)
+    batched = make_batched_infer_fn(model, bcfg)
+    recs["batched c5"] = graph_case(
+        "make_batched_infer_fn, the five c5 fixtures (replayed rolled by "
+        "one)", batched, batched.eager, [(c5,), (torch.roll(c5, 1, 0),)])
+    del c5
+
+    # the sharded call, every shard on cuda:0
+    base = Config(infer=InferConfig(compute_dtype="float32"))
+    analytic = AnalyticNet().cuda()
+    norm = [histogram_percentile_normalize(v[None])[0].cpu().numpy()
+            for v in vols]
+    frac = expected_fg_fraction(sv.half_sizes, sv.image.size)
+    merged = dataclasses.replace(base, postproc=dataclasses.replace(
+        base.postproc, merge_saddle_ratio=U1_MERGE_RATIO,
+        fg_target_fraction=frac))
+    for net_tag, net, c, src, kw in (
+            ("AnalyticNet float32, calibrated, merge 0.8", analytic, merged,
+             norm, {"normalize": False}),
+            ("calibrated c3", model, c3, [v.cpu().numpy() for v in vols],
+             {})):
+        for name, shape in (("z2,y2", (2, 2)), ("z2", (2,))):
+            mesh = _card_mesh(shape)
+            infer = make_sharded_infer_fn(net, c, mesh, **kw)
+            tag = f"--shard {name}, {net_tag} ({infer.mode})"
+            if infer.mode != "captured":
+                raise AssertionError(f"[20] {tag}: not captured")
+            inputs = [(shard_volume(v, mesh),) for v in src]
+            recs[tag] = graph_case(tag, infer, infer.eager, inputs,
+                                   holder=infer)
+            if net is model and name == "z2,y2":
+                sharded_c3 = (infer, inputs[-1])
+    mesh = _card_mesh((2,))
+    infer = make_sharded_infer_fn(analytic, base, mesh, normalize=False)
+    shards = shard_volume(norm[0], mesh)
+    recs["z_offset"] = graph_case(
+        f"--shard z2, AnalyticNet float32, z_offset 0 captured, 3e6 and "
+        f"2^31 replayed ({infer.mode})", infer, infer.eager,
+        [(shards, 0), (shards, 3_000_000), (shards, 2 ** 31)], timed=False,
+        holder=infer)
+    if len(infer.program.graphs) != 1:
+        raise AssertionError("[20] z_offset: more than one graph")
+    never_captured(model, c3, analytic, base, vols, norm)
+    one = make_infer_fn(model, c3).eager
+    vol = vols[1]
+    del seeded, vols, shards, infer
+    torch.cuda.empty_cache()
+
+    def profile():
+        """Where the device time of calibrated c3's eager one-shot and
+        ``--shard z2,y2`` calls goes (the replays run the same kernels);
+        run last, since a profiler session slows later host launches."""
+        shard, args = sharded_c3
+        for label, fn in (("calibrated c3, one shot", lambda: one(vol)),
+                          ("calibrated c3, --shard z2,y2",
+                           lambda: shard.eager(*args))):
+            profile_device_time(label, fn, top=10, phase=20,
+                                parts=("sort", "convblock", "upsample"))
+
+    return recs, profile
+
+
 def _timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4571,8 +4948,9 @@ def main(argv=None):
     parser.add_argument("--phases", default="",
                         help="comma-separated phases to run after 1-2, "
                              "e.g. 18 (brings 9) for one-volume inference "
-                             "as one device program (default: all, with "
-                             "the final record)")
+                             "as one device program, 20 (brings 9) for the "
+                             "calls as captured CUDA graphs (default: all, "
+                             "with the final record)")
     parser.add_argument("--worker", nargs=2, metavar=("LEG", "DIR"),
                         help="one process of phase 16 (started by it)")
     args = parser.parse_args(argv)
@@ -4582,8 +4960,8 @@ def main(argv=None):
     only = {int(p) for p in args.phases.split(",") if p}
     if 12 in only:
         only.add(4)                     # phase 12 compares with phase 4's labels
-    if only & {13, 14, 15, 16, 17, 18, 19}:
-        only.add(9)             # phases 13-19 infer with phase 9's checkpoint
+    if only & {13, 14, 15, 16, 17, 18, 19, 20}:
+        only.add(9)             # phases 13-20 infer with phase 9's checkpoint
 
     def want(phase):
         return not only or phase in only
@@ -4637,6 +5015,9 @@ def main(argv=None):
             if want(17):
                 touching, c5 = _timed("phase 17", phase_touching, trained[0],
                                       tmp)
+            if want(20):
+                _, profile_graphs = _timed("phase 20", phase_graphs, sv,
+                                           trained[0], trained[2], c5, tmp)
             if want(18):
                 hist_recs, _ = _timed("phase 18", phase_one_program, sv,
                                       trained[0], trained[2], c5, tmp)
@@ -4657,6 +5038,9 @@ def main(argv=None):
                                       sv.image, default_labels, tmp)
             launches.update(more)
             tile_launches.update(more_tiles)
+    if want(20):
+        _timed("phase 20 profile", profile_graphs)
+        del profile_graphs
     if only:
         print(f"phases {sorted(only)} passed; run without --phases for the "
               "whole check and its record")

@@ -21,18 +21,29 @@ device (``ops/resolve.py``). The saddle merge (``postproc.merge_saddle_ratio
 > 0``) sorts fixed-size pair tables and closes them on U1
 (``ops/merge.py``), and ``with_diagnostics=True`` returns the truncation
 count as a 0-d device tensor, as the reference does; the merge's dropped
-count stays on ``ops.merge.saddle_merge.last_dropped``. The host's
-launches, not its reads, then bound the call (``make_batched_infer_fn``).
-The streamed path reads the host between chunks (``infer/streaming.py``).
+count stays on ``ops.merge.saddle_merge.last_dropped``. So the call can
+be captured as one CUDA graph (below). The streamed path reads the host
+between chunks (``infer/streaming.py``).
 
 ``InferConfig.apply_impl`` selects the sweep's forward: "flax" is the module
 forward, "fused" the eval apply of ``models/fused_eval.py`` (the three
 full-resolution ConvBlocks on the K4 kernel).
 
-PyTorch runs eagerly, so there is no ``jit``, no ``bind_variables`` and no
-staged program: those exist to shape XLA programs on a TPU.
-``InferConfig.program`` ("fused" / "staged") is checked, then both name the
-same computation; any other value raises ``ValueError`` as in the reference.
+The reference runs these calls as jitted XLA programs; here, on the card,
+:func:`make_infer_fn`, :func:`make_batched_infer_fn` and
+:func:`infer_volume` run them as captured CUDA graphs (``infer/graph.py``):
+the first call of a shape runs the eager body, the second captures it, and
+later calls replay the graph. ``InferConfig.program`` keeps its reference
+meaning: "fused" captures the whole call as one graph, "staged" as two,
+the sweep (``stage_net``) and the post-processing (``stage_post``), on one
+memory pool; any other value raises ``ValueError``. Settings whose body
+reads the host (``postproc.resolve_impl="xla"``,
+``graph.eager_reason``) run eagerly on every call, and the program's
+``.mode`` says so. The eager body is the returned program's ``.eager``,
+and :func:`make_infer_stages` returns the eager stages (the checks compare
+the graphs with them). There is no ``bind_variables``: a graph reads the
+model's weights where they are, and the program starts over when they
+move (``graph.module_state``).
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ import torch
 from tpuseg_torch.core import Config
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.data.normalize import histogram_percentile_scalars
+from tpuseg_torch.infer.graph import (CapturedProgram, Chain, eager_reason,
+                                      module_state)
 from tpuseg_torch.infer.tiles import rf_radius_bound, tiled_forward
 from tpuseg_torch.ops.calibrate import threshold_for_fraction
 from tpuseg_torch.ops.filter import size_filter_and_compact
@@ -173,32 +186,45 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
     return infer, stage_net, stage_post
 
 
+def _captured(model, cfg: Config, infer, stage_net, stage_post):
+    """``InferConfig.program``'s structure as captured graphs: "fused" one
+    program of ``infer``, "staged" ``stage_net`` then ``stage_post``;
+    eager on every call where ``graph.eager_reason`` says so."""
+    kw = {"context": lambda: module_state(model),
+          "eager_reason": eager_reason(cfg)}
+    if cfg.infer.program == "staged":
+        return Chain(stage_net, stage_post, eager=infer, **kw)
+    return CapturedProgram(infer, **kw)
+
+
 def make_infer_fn(model, cfg: Config, normalize: bool = True,
                   with_diagnostics: bool = False):
     """``infer(volume) -> int32 labels`` (D, H, W), on ``volume``'s device;
     ``model`` is any module mapping (B, 1, d, h, w) blocks to
-    ``{"fg_logits", "peak_logits"}`` and must sit on that device.
+    ``{"fg_logits", "peak_logits"}`` and must sit on that device. On the
+    card the call runs as a captured graph from its second call of a shape
+    on (module docstring); ``infer.eager`` is the eager body, ``infer.mode``
+    "captured" or why every call runs eagerly, and ``infer.release()``
+    frees the graphs and their memory pool.
 
     ``with_diagnostics=True``: ``infer`` returns ``(labels, diag)`` with
     ``diag["flood_truncated"]`` (``ops.watershed.flood_truncation_count``,
     a 0-d int32 tensor on the volume's device; zero iff the flood
     converged)."""
-    return make_infer_stages(model, cfg, normalize, with_diagnostics)[0]
+    return _captured(model, cfg, *make_infer_stages(model, cfg, normalize,
+                                                    with_diagnostics))
 
 
 def make_batched_infer_fn(model, cfg: Config, normalize: bool = True):
     """``infer(volumes) -> int32 labels`` (N, D, H, W) for a stacked
     (N, D, H, W) tensor: each volume normalized with its own percentiles
-    and labelled independently by :func:`make_infer_fn`'s function, one
-    after the other, into one label tensor on the volumes' device. On the
-    card no call reads the host (module docstring), as the reference maps
-    the volumes inside one
-    program without a host round trip. The host's launches still bound the
-    batch: each volume's, 128 of them chase passes, fill the launch queue,
-    so on the card the batch takes as long as N single calls
-    (``chip_smoke.py`` [18](e); ROADMAP.md, Queue 2: the batched call as
-    one CUDA graph)."""
-    infer = make_infer_fn(model, cfg, normalize)
+    and labelled independently by :func:`make_infer_fn`'s body, one after
+    the other, into one label tensor on the volumes' device. On the card
+    the whole loop is one captured graph from the second call of a shape on
+    (two under ``program="staged"``: every volume's sweep, then every
+    volume's post-processing), as the reference maps the volumes inside one
+    program without a host round trip."""
+    infer, stage_net, stage_post = make_infer_stages(model, cfg, normalize)
 
     def infer_batch(volumes: torch.Tensor) -> torch.Tensor:
         out = torch.empty(volumes.shape, dtype=torch.int32,
@@ -207,12 +233,32 @@ def make_batched_infer_fn(model, cfg: Config, normalize: bool = True):
             out[i] = infer(volumes[i])
         return out
 
-    return infer_batch
+    def net_batch(volumes: torch.Tensor) -> list:
+        return [stage_net(v) for v in volumes]
+
+    def post_batch(outs: list) -> torch.Tensor:
+        return torch.stack([stage_post(o) for o in outs])
+
+    return _captured(model, cfg, infer_batch, net_batch, post_batch)
 
 
 def infer_volume(model, volume, cfg: Config, normalize: bool = True,
                  device="cuda") -> torch.Tensor:
     """One-shot :func:`make_infer_fn` on ``volume`` (array or tensor),
-    moved to ``device`` first; ``model`` must sit there."""
-    return make_infer_fn(model, cfg, normalize)(
-        torch.as_tensor(volume, device=device))
+    moved to ``device`` first; ``model`` must sit there. The function is
+    kept on the model, one per ``cfg`` and ``normalize``, for as long as
+    the model lives, so a second call of a shape captures it and later
+    calls replay it; its graphs keep their memory pool reserved until
+    ``release_infer_volume(model)``."""
+    programs = model.__dict__.setdefault("_infer_volume_programs", {})
+    key = (cfg, normalize)
+    if key not in programs:
+        programs[key] = make_infer_fn(model, cfg, normalize)
+    return programs[key](torch.as_tensor(volume, device=device))
+
+
+def release_infer_volume(model) -> None:
+    """Free the graphs, and their memory pools, that :func:`infer_volume`
+    keeps on ``model``."""
+    for program in model.__dict__.pop("_infer_volume_programs", {}).values():
+        program.release()

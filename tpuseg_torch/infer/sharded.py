@@ -48,6 +48,18 @@ dropped pairs) come from shapes or stay on the device, so in one process
 when ``unshard`` copies the labels out, and ``report_sharded_counts`` then
 prints what the call kept on the device.
 
+The call is then captured as a CUDA graph (``infer/graph.py``; the first
+call of a shape runs eagerly, the second captures, later calls replay)
+when every shard of this process sits on one CUDA device, no process group
+runs and the settings allow it (``graph.eager_reason``): the reference's
+``jax.jit`` of its ``shard_map``. Shards on several cards in one process
+or on the CPU, a ``torch.distributed`` group (whose collectives are host
+calls between the stages), ``plain=True`` and ``postproc.resolve_impl=
+"xla"`` (which read the host between passes) run eagerly on every call,
+and ``infer.mode`` says which of these held. ``z_offset`` reaches the
+program as a 0-d int64 device tensor, so calls at other offsets replay one
+graph.
+
 Root coordinates are int64 linear indices ``(gz * H + gy) * W + x``
 (``z_offset`` places the stack inside a larger volume); the bound this path
 keeps is the int32 labels of the watershed: an extended slab must hold
@@ -62,6 +74,8 @@ import torch
 from tpuseg_torch.core import Config
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.data.normalize import bin_counts, percentiles_from_counts
+from tpuseg_torch.infer.graph import (CapturedProgram, CudaGraphs,
+                                      eager_reason, module_state)
 from tpuseg_torch.infer.pipeline import make_apply_fn
 from tpuseg_torch.infer.tiles import tiled_forward
 from tpuseg_torch.ops.calibrate import fg_bin_counts, threshold_from_counts
@@ -155,8 +169,8 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
     its device; the result is each of those shards' int32 core labels on
     its device (``unshard`` puts every process's together). ``z_offset`` is
     the global z of the stack's first plane, for a block inside a larger
-    volume. Under a process group every process calls ``infer`` on its
-    shards.
+    volume (an int or a 0-d int64 tensor). Under a process group every
+    process calls ``infer`` on its shards.
 
     ``model`` maps (B, 1, d, h, w) blocks to ``{"fg_logits",
     "peak_logits"}``; it is copied to each shard device it is not on. The
@@ -167,7 +181,15 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
     A call keeps its counts on the device, on ``infer``: ``last_overflow``
     (the largest per-shard distinct count, 0-d) and, with the merge on,
     ``last_merge_dropped`` (the largest per-axis dropped count, (3,));
-    ``report_sharded_counts(infer)`` prints them after the labels."""
+    ``report_sharded_counts(infer)`` prints them after the labels.
+
+    ``infer.mode`` is "captured" where the call runs as a CUDA graph
+    (module docstring), else why it runs eagerly: ``graph.eager_reason``'s
+    answer, "eager: process group", "eager: several devices" or "eager: not
+    on a CUDA device"; ``infer.eager`` is the eager body (it takes
+    ``z_offset`` as an int or a 0-d tensor) and, where captured,
+    ``infer.program`` the :class:`~tpuseg_torch.infer.graph.CapturedProgram`
+    of it (``infer.program.release()`` frees its graphs)."""
     axes = tuple(mesh.axis_names)
     if not 1 <= len(axes) <= 2:
         raise ValueError(f"mesh must have 1 or 2 spatial axes, got {axes}")
@@ -180,12 +202,12 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
     compute_dtype = resolve(cfg.infer.compute_dtype)
     pp = cfg.postproc
     local = mesh.local_ranks()
-    apply_fns = {d: make_apply_fn(m, cfg, plain) for d, m in replicas(
-        model, [mesh.devices[r] for r in local]).items()}
+    models = replicas(model, [mesh.devices[r] for r in local])
+    apply_fns = {d: make_apply_fn(m, cfg, plain) for d, m in models.items()}
     coords = [mesh.coords(r) for r in range(mesh.size)]
 
     @torch.inference_mode()
-    def infer(shards, z_offset: int = 0):
+    def eager(shards, z_offset=0):
         if len(shards) != len(local):
             raise ValueError(f"{len(shards)} shards for this process's "
                              f"{len(local)} of the mesh")
@@ -258,7 +280,9 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                       for d, n in enumerate(sizes) if nper[d] > 1]
             table, counts, nd = build_local_table(_core(grown, 0, sizes),
                                                   planes, cap)
-            origin = (coords[r][0] * dl - halo + z_offset,
+            z = (z_offset.to(lab.device) if isinstance(z_offset, torch.Tensor)
+                 else z_offset)
+            origin = (coords[r][0] * dl - halo + z,
                       coords[r][1] * hl - halo if len(axes) == 2 else 0)
             out = {"key": global_lin(table, lab.shape[1], origin, H, W),
                    "count": counts, "n_distinct": nd,
@@ -326,6 +350,29 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
                                      edges, cap, mesh.size,
                                      min_size=pp.min_size)
 
+    devices = set(apply_fns)
+    mode = (eager_reason(cfg, plain) or
+            ("eager: process group" if is_distributed() else
+             "eager: several devices" if len(devices) > 1 else
+             "captured" if CudaGraphs.accepts(devices) else
+             "eager: not on a CUDA device"))
+    if mode == "captured":
+        def infer(shards, z_offset=0):
+            if not isinstance(z_offset, torch.Tensor):
+                # a fill, not a host copy: no wait for the device
+                z_offset = torch.full((), z_offset, dtype=torch.int64,
+                                      device=shards[0].device)
+            return infer.program(list(shards), z_offset)
+
+        # the body sets its counts on `infer`; after a replay they point
+        # at the graph's buffers
+        infer.program = CapturedProgram(
+            eager, state=((infer, "last_overflow"),
+                          (infer, "last_merge_dropped")),
+            context=lambda: module_state(*models.values()))
+    else:
+        infer = eager
+    infer.eager, infer.mode = eager, mode
     infer.cap, infer.max_pairs = cap, pp.merge_max_pairs
     infer.last_overflow = infer.last_merge_dropped = None
     return infer

@@ -17,12 +17,14 @@ from tpuseg_torch.ops.components import (connected_components,
 from tpuseg_torch.ops.filter import (label_sizes, max_seed_count, size_filter,
                                      size_filter_and_compact)
 from tpuseg_torch.ops.hist import bin_counts, label_counts, percentiles
+from tpuseg_torch.ops.merge import LAST_CALL_STATE as _MERGE_STATE
 from tpuseg_torch.ops.merge import (apply_merge_table, pair_aggregate,
                                     pair_slots, saddle_merge,
                                     saddle_merge_edges, saddle_merge_table)
 from tpuseg_torch.ops.nms import fused_peak_nms
 from tpuseg_torch.ops.peaks import peak_nms, radius3, seed_labels_from_peaks
 from tpuseg_torch.ops.relabel import compact_relabel
+from tpuseg_torch.ops.resolve import LAST_CALL_STATE as _RESOLVE_STATE
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve, flood_pass,
                                       flood_resolve)
 from tpuseg_torch.ops.seed import seed_chase_pass
@@ -36,8 +38,13 @@ KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
                    label_counts, union_closure, pair_aggregate, pair_slots)
 
+#: the state the wrappers keep about their last call, ``(holder,
+#: attribute)``, declared by each wrapper's module
+LAST_CALL_STATE = _RESOLVE_STATE + _MERGE_STATE
+
 __all__ = [
-    "KERNEL_WRAPPERS", "apply_merge_table", "ascent_labels", "bin_counts",
+    "KERNEL_WRAPPERS", "LAST_CALL_STATE", "apply_merge_table",
+    "ascent_labels", "bin_counts",
     "chase_pass",
     "chase_resolve", "compact_relabel", "connected_components", "conv3x3",
     "conv3x3_plain", "conv3x3_raw", "flood_pass", "flood_resolve",

@@ -376,3 +376,7 @@ def saddle_merge(labels: torch.Tensor, peak_prob: torch.Tensor, ratio: float,
 
 
 saddle_merge.last_dropped = None
+
+#: the state this module's wrappers keep about their last call (as in
+#: ``ops/resolve.py``)
+LAST_CALL_STATE = ((saddle_merge, "last_dropped"),)

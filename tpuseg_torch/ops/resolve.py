@@ -296,6 +296,12 @@ def flood_resolve(seed_labels, fg_mask, potential, max_iters: int,
 
 flood_resolve.last_gates = None
 
+#: the state these wrappers keep about their last call, as ``(holder,
+#: attribute)``: a captured program points it at its own buffers after
+#: each replay (``infer/graph.py``)
+LAST_CALL_STATE = ((chase_resolve, "last_gates"),
+                   (flood_resolve, "last_gates"))
+
 
 def _flood_passes(max_iters: int, iters_per_pass: int) -> int:
     """The passes a flood of ``max_iters`` steps may run: the whole ones

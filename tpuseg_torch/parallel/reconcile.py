@@ -175,9 +175,9 @@ def global_lin(labels: torch.Tensor, ey: int, origin, H: int,
                W: int) -> torch.Tensor:
     """int64 linear indices ``(gz * H + gy) * W + x`` of the roots named by
     ``labels`` (``lin + 1`` over an extended slab ``ey`` rows high whose
-    first voxel sits at global ``(z, y) = origin``): the order-preserving
-    coordinates of the table entries; an unused table slot (2^31 - 1) gets
-    the sentinel."""
+    first voxel sits at global ``(z, y) = origin``, ints or 0-d int64
+    tensors): the order-preserving coordinates of the table entries; an
+    unused table slot (2^31 - 1) gets the sentinel."""
     v = labels.to(torch.int64) - 1
     x, t = v % W, v // W
     lin = ((t // ey + origin[0]) * H + t % ey + origin[1]) * W + x

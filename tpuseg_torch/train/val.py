@@ -103,7 +103,9 @@ def make_val_eval(model, cfg: Config, val_volumes: Sequence[SyntheticVolume]):
         from tpuseg_torch.eval import center_match_f1
         from tpuseg_torch.infer import make_infer_fn
 
-        infer = make_infer_fn(model, cfg)
+        # the eager body: its calls are device-bound, and a captured graph
+        # would hold its memory pool through the whole run
+        infer = make_infer_fn(model, cfg).eager
 
     def evaluate() -> dict:
         was_training = model.training
