@@ -280,9 +280,27 @@ Phases, in order; any failure raises and exits non-zero:
     pass) called three times each on the card, every call eager and equal;
     and a c3 program whose model's parameter storage moves after its
     replays: it releases its graph and runs eagerly again, labels equal.
+21. (needs no checkpoint; run after phase 8) the train step as a captured
+    CUDA graph (``tpuseg_torch/train/step.TrainStep``): the default U-Net
+    at batch 8 of 64^3, bf16, warmup above the steps run so that lr
+    changes every step, under the fused and the plain apply, at
+    ``grad_accum`` 1 and 2 (the latter with z-scale augmentation too):
+    two models from one seed, six eager steps of one against six program
+    calls of the other (eager, capture, four replays), parameters,
+    BatchNorm statistics, AdamW moments and metrics equal bitwise after
+    every step, the replays under ``set_sync_debug_mode("error")``, K6 11
+    launches a step (10 on the tensor cores) at ``grad_accum`` 1; a short
+    ``train()`` with validation (val-volume inference) and checkpoints,
+    then one stopped half-way and resumed: one capture a run, no graph
+    released, the resumed parameters == the uninterrupted run's; warm ms a
+    step and host enqueue, eager against replayed, mean of 5, two turns
+    each, with the capture's time and pool beside the eager step's
+    reserved growth and peak; last, the device time of one eager and one
+    replayed step by kernel (``torch.profiler``).
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-20 bring 9). Without
+alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21 brings
+nothing). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
@@ -1267,7 +1285,9 @@ def phase_train_main_path(tmp: str):
 def phase_train_step_times():
     """One warm train step (full default U-Net, batch 8 of 64^3, bf16) under
     the fused and the plain-module apply, in turns on one fixed batch: wall
-    ms ending in a synchronize, then each step's device time by kernel."""
+    ms ending in a synchronize, then each step's device time by kernel.
+    The two calls before the timed ones run eagerly and capture, so the
+    timed steps are replays (phase 21 times them against the eager body)."""
     from tpuseg_torch.core import Config
     from tpuseg_torch.data import PatchSampler, synthesize_volume
     from tpuseg_torch.models import build_model
@@ -1298,7 +1318,8 @@ def phase_train_step_times():
         torch.cuda.synchronize()
         if turn >= 2:
             times[tag].append(1e3 * (time.perf_counter() - t0) / 5)
-    print(f"[7] warm train step, mean of 5, two turns each: fused apply "
+    print(f"[7] warm train step (replayed), mean of 5, two turns each: "
+          f"fused apply "
           f"{' / '.join(f'{t:.1f}' for t in times['fused'])} ms, plain "
           f"apply {' / '.join(f'{t:.1f}' for t in times['plain'])} ms")
     for tag in ("fused", "plain"):
@@ -2424,13 +2445,13 @@ def _f32_first_step(tmp: str, dp: bool):
                                      weights_only=True))
     model.cuda().train()
     state = create_train_state(model, cfg)
-    grads, update = [], state.opt.update
+    grads, apply = [], state.opt.apply
 
-    def kept(params, g, gnorm):        # the gradient AdamW is given
+    def kept(params, g, gnorm, hyper):  # the gradient AdamW is given
         grads.append(torch.cat([v.reshape(-1) for v in g.values()]).cpu())
-        return update(params, g, gnorm)
+        return apply(params, g, gnorm, hyper)
 
-    state.opt.update = kept
+    state.opt.apply = kept
     batch = _dp_batch(tmp, 0)
     if dp:
         mesh = make_data_mesh()
@@ -3483,19 +3504,20 @@ def profile_device_time(label: str, fn, top: int = 8, phase: int = 12,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = {}
+    kernels, launches = {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", 0) or 0
             kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+            launches += e.count
     total = sum(kernels.values())
     if total == 0:
         print(f"[{phase}] profile of {label}: device time not measured")
         return
     # the host's wall time under the profiler is the profiler's own: the
     # busy share is this sum over the warm wall time printed above
-    print(f"[{phase}] profile of {label}: device kernels {total:.1f} ms in all; "
-          f"top {top} by device time:")
+    print(f"[{phase}] profile of {label}: device kernels {total:.1f} ms in all "
+          f"({launches} device events); top {top} by device time:")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"       {ms:9.2f} ms {100 * ms / total:5.1f}%  {key[:90]}")
     for part in parts:
@@ -4936,6 +4958,213 @@ def phase_graphs(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
     return recs, profile
 
 
+TRAIN_GRAPH_STEPS = 6                   # phase 21: eager, capture, 4 replays
+TRAIN_GRAPH_CASES = (("fused", 1, None), ("flax", 1, None),
+                     ("fused", 2, (0.5, 1.0)), ("flax", 2, (0.5, 1.0)))
+
+
+def _train_graph_config(apply_impl, zscale=None, **train):
+    """Phase 21's configuration: the default U-Net (bf16) at batch 8 of
+    64^3 with a warmup above the steps run, so lr changes every step."""
+    from tpuseg_torch.core import Config
+
+    sets = {"train.apply_impl": apply_impl, "train.warmup_steps": 100,
+            "train.total_steps": 200,
+            **{f"train.{k}": v for k, v in train.items()}}
+    if zscale is not None:
+        sets["data.aug_zscale"] = list(zscale)
+    return Config().override(**sets)
+
+
+def _train_state_tensors(state) -> dict:
+    """Everything a train step changes: parameters, BatchNorm statistics
+    and AdamW's moments."""
+    return {**state.model.state_dict(),
+            **{f"mu.{k}": v for k, v in state.opt.mu.items()},
+            **{f"nu.{k}": v for k, v in state.opt.nu.items()}}
+
+
+def train_graph_case(apply_impl, grad_accum, zscale, batches) -> tuple:
+    """One case of phase 21: two models from one seed, one stepped by the
+    eager body, the other by the program; bitwise after every step.
+    Returns the program's step and its state."""
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.train.step import create_train_state, make_train_step
+
+    cfg = _train_graph_config(apply_impl, zscale)
+    tag = (f"{apply_impl} apply, grad_accum {grad_accum}"
+           + (f", z-scale {zscale}" if zscale else ""))
+    states = [create_train_state(build_model(cfg.model, seed=SEED).cuda(),
+                                 cfg) for _ in range(2)]
+    ref, prog = (make_train_step(st.model, cfg, grad_accum=grad_accum)
+                 for st in states)
+    if prog.program.mode != "captured":
+        raise AssertionError(f"[21] {tag}: mode {prog.program.mode}")
+    runs, k6, mem = [], [], {}
+    for i, batch in enumerate(batches):
+        want = ref.eager(states[0], batch, SEED + 1)
+        torch.cuda.synchronize()
+        _reset_launches()
+        if i == 0:
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        got = (no_host_reads if i >= 2 else lambda f: f())(
+            lambda: prog(states[1], batch, SEED + 1))
+        torch.cuda.synchronize()
+        if i == 0:
+            mem = {"eager_reserved": torch.cuda.memory_reserved() - reserved,
+                   "eager_peak": torch.cuda.max_memory_allocated() - base}
+        runs.append(prog.program.last_run)
+        k6.append((_launches()["conv3x3_raw"],
+                   _mma_launches()["conv3x3_raw"]))
+        if not _same(got, want) or not _same(
+                _train_state_tensors(states[1]),
+                _train_state_tensors(states[0])):
+            raise AssertionError(f"[21] {tag}: step {i + 1} ({runs[-1]}) != "
+                                 "the eager body's (metrics or state)")
+        if not states[1].step == states[0].step == states[1].opt.count \
+                == i + 1:
+            raise AssertionError(f"[21] {tag}: step counters "
+                                 f"{states[1].step}, {states[1].opt.count}")
+    if runs != ["eager: first sight", "capture"] + ["replay"] * (
+            len(batches) - 2) or prog.program.captures != 1:
+        raise AssertionError(f"[21] {tag}: the calls ran {runs}")
+    want_k6 = ((11 * grad_accum, 10 * grad_accum) if apply_impl == "fused"
+               else (0, 0))
+    if any(n != want_k6 for n in k6):
+        raise AssertionError(f"[21] {tag}: K6 launches a step {k6}, not "
+                             f"{want_k6}")
+    (graph,) = prog.program.graphs.values()
+    mem.update(pool=graph.stats["reserved_bytes"],
+               capture_ms=1e3 * graph.stats["capture_s"])
+    print(f"[21] {tag}: calls ran {' / '.join(runs)}; {len(batches)} steps "
+          "== the eager body's bitwise after every step (parameters, "
+          "BatchNorm statistics, moments, metrics), the replays in sync "
+          f"debug mode 'error'; K6 launches a step (all, tensor cores) "
+          f"{k6[-1]}; capture {mem['capture_ms']:.1f} ms, pool "
+          f"{mem['pool'] / 2 ** 20:.1f} MiB against the eager step's "
+          f"reserved growth {mem['eager_reserved'] / 2 ** 20:.1f} MiB and "
+          f"peak above the live tensors {mem['eager_peak'] / 2 ** 20:.1f} "
+          "MiB", flush=True)
+    return prog, states[1]
+
+
+def train_graph_times(cases: dict, batch) -> None:
+    """Phase 21: warm ms a step, eager body against replay, in turns
+    (eager, replay, replay, eager), mean of 5: host enqueue (until the
+    fifth call returns) and wall (until the card is done); then one
+    replay's host enqueue from an idle card (no queue ahead of it)."""
+    for tag, (prog, state) in cases.items():
+        times = {"eager": [], "replay": []}
+        for which in ("eager", "replay", "replay", "eager"):
+            call = prog.eager if which == "eager" else prog
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                call(state, batch, SEED + 1)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[which].append((1e3 * (t1 - t0) / 5,
+                                 1e3 * (time.perf_counter() - t0) / 5))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog(state, batch, SEED + 1)
+        alone = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if prog.program.last_run != "replay" or prog.program.captures != 1:
+            raise AssertionError(f"[21] {tag}: timing recaptured")
+        print(f"[21] warm train step, {tag}, mean of 5, host enqueue / wall "
+              "ms: " + "; ".join(f"{w} " + ", ".join(
+                  f"{a:.1f} / {b:.1f}" for a, b in r)
+                  for w, r in times.items())
+              + f"; one replay's host enqueue on an idle card {alone:.2f} ms",
+              flush=True)
+
+
+def train_graph_loop(tmp: str) -> None:
+    """Phase 21: ``train()`` through the captured step, fused apply, with
+    validation (val-volume inference) and checkpoints every 4 steps: one
+    capture, nothing released; then a run stopped at step 4 and resumed
+    to 8 == the uninterrupted run bitwise, one capture a run."""
+    import tpuseg_torch.train.loop as loop
+    from tpuseg_torch.data import synthesize_volume
+
+    vols = [synthesize_volume(shape=(64, 128, 128), num_instances=16,
+                              seed=s) for s in (0, 1)]
+    made, orig = [], loop.make_train_step
+
+    def record(*a, **kw):
+        made.append(orig(*a, **kw))
+        return made[-1]
+
+    def run(name, steps, resume=False):
+        cfg = _train_graph_config(
+            "fused", total_steps=steps, log_every=4, val_every=4,
+            val_patches=8, val_f1=True, ckpt_every=4,
+            ckpt_dir=os.path.join(tmp, f"train21_{name}"))
+        return loop.train(cfg, vols[:1], val_volumes=vols[1:],
+                          resume=resume, device="cuda")
+
+    loop.make_train_step = record
+    try:
+        whole, hist = run("a", 8)
+        run("b", 4)
+        resumed, _ = run("b", 8, resume=True)
+    finally:
+        loop.make_train_step = orig
+    ran = [(s.program.captures, len(s.program.graphs), s.program.last_run)
+           for s in made]
+    if ran != [(1, 1, "replay")] * 3:
+        raise AssertionError(f"[21] train(): captures, graphs, last call "
+                             f"{ran}")
+    if sum("val_loss" in h for h in hist) != 2:
+        raise AssertionError(f"[21] train(): validations {hist}")
+    if resumed.step != 8 or not _same(_train_state_tensors(resumed),
+                                      _train_state_tensors(whole)):
+        raise AssertionError("[21] train(): the resumed run != the "
+                             "uninterrupted one")
+    for s in made:
+        s.program.release()
+    print("[21] train(): 8 steps with 2 validations (val-volume inference) "
+          "and 2 checkpoints, one capture, no graph released; stopped at 4 "
+          "and resumed to 8: one capture a run, parameters, statistics and "
+          "moments == the uninterrupted run's bitwise", flush=True)
+
+
+def phase_train_graph():
+    """Phase 21: the train step as a captured CUDA graph (module
+    docstring)."""
+    from tpuseg_torch.data import PatchSampler, synthesize_volume
+
+    vol = synthesize_volume(shape=(64, 128, 128), num_instances=16, seed=0)
+    sampler = PatchSampler([vol], batch_size=TRAIN_SHAPE[0])
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in sampler.next_batch().items()}
+               for _ in range(TRAIN_GRAPH_STEPS)]
+    timed = {}
+    for apply_impl, grad_accum, zscale in TRAIN_GRAPH_CASES:
+        prog, state = train_graph_case(apply_impl, grad_accum, zscale,
+                                       batches)
+        if grad_accum == 1:
+            timed[f"{apply_impl} apply"] = (prog, state)
+        else:
+            prog.program.release()
+        del prog, state
+    with tempfile.TemporaryDirectory() as tmp:
+        train_graph_loop(tmp)
+    train_graph_times(timed, batches[-1])
+    # last: a profiler session slows the host's later launches
+    for tag, (prog, state) in timed.items():
+        for which, call in (("eager", prog.eager), ("replayed", prog)):
+            profile_device_time(
+                f"one warm {which} train step, {tag}",
+                lambda: call(state, batches[-1], SEED + 1), phase=21,
+                parts=("conv3x3", "cudnn", "wgrad"))
+        prog.program.release()
+
+
 def _timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4949,8 +5178,9 @@ def main(argv=None):
                         help="comma-separated phases to run after 1-2, "
                              "e.g. 18 (brings 9) for one-volume inference "
                              "as one device program, 20 (brings 9) for the "
-                             "calls as captured CUDA graphs (default: all, "
-                             "with the final record)")
+                             "calls as captured CUDA graphs, 21 for the "
+                             "train step as one (default: all, with the "
+                             "final record)")
     parser.add_argument("--worker", nargs=2, metavar=("LEG", "DIR"),
                         help="one process of phase 16 (started by it)")
     args = parser.parse_args(argv)
@@ -4995,6 +5225,8 @@ def main(argv=None):
                 "phase 7", phase_train_main_path, tmp)["conv3x3_raw"]
     if want(8):
         _timed("phase 8", phase_fused_vs_plain)
+    if want(21):
+        _timed("phase 21", phase_train_graph)
     if want(9):
         with tempfile.TemporaryDirectory() as tmp:
             trained = _timed("phase 9", phase_trained_quality, sv, tmp)

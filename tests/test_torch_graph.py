@@ -63,7 +63,7 @@ class StandIn:
         return object()
 
     @staticmethod
-    def capture(fn, args, pool, device):
+    def capture(fn, args, pool, device, generators=()):
         out = fn(*args)
         return _StandInGraph(fn, args, out), out, 0
 
@@ -94,7 +94,7 @@ def standin_cuda(monkeypatch):
 
 class FailingCapture(StandIn):
     @staticmethod
-    def capture(fn, args, pool, device):
+    def capture(fn, args, pool, device, generators=()):
         raise RuntimeError("operation not permitted when stream is capturing")
 
 

@@ -37,13 +37,13 @@ def test_train_step_clean_under_anomaly_detection(norm, activation):
                            batch_size=2, max_instances=8, seed=0)
     step = make_train_step(model, cfg)
     grads = {}
-    update = state.opt.update
+    apply = state.opt.apply
 
-    def seen_update(params, g, gnorm):     # the gradients the optimizer gets
+    def seen_apply(params, g, gnorm, hyper):  # the gradients the optimizer gets
         grads.update(g)
-        return update(params, g, gnorm)
+        return apply(params, g, gnorm, hyper)
 
-    state.opt.update = seen_update
+    state.opt.apply = seen_apply
     with torch.autograd.set_detect_anomaly(True):
         for _ in range(2):
             batch = {k: torch.from_numpy(v)

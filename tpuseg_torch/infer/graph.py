@@ -1,6 +1,6 @@
 """Captured programs: the port's counterpart of the reference's jitted
 inference calls (``jax.jit`` in ``tpuseg/infer/pipeline.py`` and
-``tpuseg/infer/sharded.py``).
+``tpuseg/infer/sharded.py``) and train step (``tpuseg/train/loop.py``).
 
 XLA compiles a call once for its argument shapes and replays the program.
 On the card the counterpart is a CUDA graph: :class:`CapturedProgram`
@@ -28,7 +28,18 @@ eagerly in its place.
 What can be captured is a rule of the settings, :func:`eager_reason`, that
 every factory applies: a body that reads the host between its launches
 (the plain twins, ``postproc.resolve_impl="xla"``) cannot be, and such a
-program runs eagerly on every call, its ``mode`` saying why.
+program runs eagerly on every call, its ``mode`` saying why. The train
+step's rule is :func:`train_eager_reason`.
+
+A training body (``autograd=True``: ``train/step.TrainStep``) runs with
+autograd and changes state the program does not own: the parameters, the
+optimizer's moments, the BatchNorm statistics. A capture runs nothing, and
+the replay that follows it runs the body once, so the capture call, like
+every other, advances that state once (no warm-up steps on a side stream:
+they would be real updates). Its random draws come from generators the
+body names (``generators``), registered with each graph before its
+capture, so a replay draws from their state at the replay: reseeded on the
+host, they give the eager body's draws.
 
 A graph also reads what the body reads besides its arguments: the model's
 parameters and buffers, at the addresses they had at the capture. A
@@ -80,6 +91,15 @@ def eager_reason(cfg, plain: bool = False) -> str | None:
         return "eager: plain twins"
     if cfg.postproc.resolve_impl == "xla":
         return "eager: resolve_impl='xla' reads the host"
+    return None
+
+
+def train_eager_reason(group) -> str | None:
+    """Why a train step cannot be captured: under a ``torch.distributed``
+    group its gradient and BatchNorm all-reduces are collectives the host
+    drives (gloo), and NCCL across cards is not measured here."""
+    if group is not None:
+        return "eager: torch.distributed group"
     return None
 
 
@@ -149,22 +169,30 @@ class CudaGraphs:
         return torch.cuda.graph_pool_handle()
 
     @staticmethod
-    def capture(fn, args, pool, device):
+    def capture(fn, args, pool, device, generators=()):
         """``(graph, outputs, bytes the capture reserved)``; the outputs
         are the graph's own buffers, written by each replay. The cyclic
         garbage collector is run before and held off during the capture:
         a graph it frees in the middle of a capture (a program in a
-        reference cycle) invalidates the capture."""
+        reference cycle) invalidates the capture. ``generators`` are
+        registered with the graph first. Only the capturing thread is held
+        to the capture's rules ("thread_local"): the train loop's prefetch
+        thread pins and uploads the next batch meanwhile, and a training
+        body's backward runs on autograd's thread, on the capturing
+        stream."""
         with torch.cuda.device(device):
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved()
             graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                graph.register_generator_state(g)
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=pool):
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
                     out = fn(*args)
             finally:
                 if collecting:
@@ -212,7 +240,7 @@ class _Graph:
         t0 = time.perf_counter()
         self.graph, out, reserved = backend.capture(
             program.eager, _rebuild(args, iter(self.inputs)),
-            program.pool.handle(), self.device)
+            program.pool.handle(), self.device, program.generators())
         self._replay = functools.partial(backend.replay, self.graph,
                                          self.device)
         self.stats = {"capture_s": time.perf_counter() - t0,
@@ -246,17 +274,22 @@ class CapturedProgram:
     body sets per call, beside ``ops.LAST_CALL_STATE``. ``context``: a
     function of no arguments giving a hashable value of what the body reads
     besides its arguments (:func:`module_state`); the graphs are released
-    when it changes."""
+    when it changes. ``autograd``: a training body (module docstring), run
+    with autograd rather than under inference mode; ``generators``: a
+    function of no arguments giving the generators the body draws from
+    (read at the capture). ``captures`` counts the graphs captured."""
 
     def __init__(self, fn, state=(), pool: GraphPool | None = None,
                  backend=CudaGraphs, context=None,
-                 eager_reason: str | None = None):
+                 eager_reason: str | None = None, autograd: bool = False,
+                 generators=tuple):
         self.eager, self.backend, self.context = fn, backend, context
         self.mode = eager_reason or "captured"
         self.state = LAST_CALL_STATE + tuple(state)
         self.pool = pool if pool is not None else GraphPool(backend)
         self.graphs, self._seen, self.last_run = {}, set(), None
         self._context = None
+        self.autograd, self.generators, self.captures = autograd, generators, 0
 
     def release(self) -> None:
         """Drop every graph and give the pool's memory back (what their
@@ -267,8 +300,11 @@ class CapturedProgram:
         if graphs:
             self.backend.release(graphs)
 
-    @torch.inference_mode()
     def __call__(self, *args):
+        with torch.inference_mode(not self.autograd):
+            return self._call(*args)
+
+    def _call(self, *args):
         if self.mode != "captured":
             self.last_run = self.mode
             return self.eager(*args)
@@ -290,6 +326,7 @@ class CapturedProgram:
             self.last_run = "eager: first sight"
             return self.eager(*args)
         graph = self.graphs[key] = _Graph(self, args)
+        self.captures += 1
         self.last_run = "capture"
         # the capture itself moved the counters once
         return graph.run(args, count=False)

@@ -41,7 +41,8 @@ def make_dp_train_step(model, cfg: Config, mesh: Mesh):
     and the gradients, metrics and BatchNorm statistics averaged over
     every process of the runtime, one per shard of ``mesh``. Puts the
     model's BatchNorms on that group and broadcasts its parameters and
-    buffers from rank 0 first."""
+    buffers from rank 0 first. The step runs eagerly on every call
+    (``infer/graph.train_eager_reason``)."""
     if not is_distributed():
         raise ValueError("data parallelism needs a process group: start it "
                          "with parallel.multihost.initialize()")

@@ -6,7 +6,10 @@
 * checkpoints carrying parameters, optimizer state, BatchNorm statistics,
   the step, the sampler state and the best val loss, for exact resume.
 
-One process trains on the one device it is given. Under a multi-process
+One process trains on the one device it is given; on a card its step is
+a captured CUDA graph from the second step on (``train/step.TrainStep``),
+and the loop reads the step's metrics only every ``log_every`` steps.
+Validation, checkpoints and resume keep the graph. Under a multi-process
 runtime (``parallel/multihost.py``, more than one process) it trains
 data-parallel, as the JAX loop does when it sees several devices
 (``train/dp.py``): each process draws the same global batch and steps on
