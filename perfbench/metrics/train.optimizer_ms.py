@@ -1,0 +1,16 @@
+"""Device time of the train step's optimizer (the global norm, the clipping
+and AdamW): the program's ``optimizer`` stage, per step (summed over its
+microbatches), from the stage marks captured in the step's graph; steps
+whose marks the next replay overwrote before they were read are left out."""
+
+from perfbench import program
+
+LAYER = "train step (train/step.py, infer/graph.py)"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "train_mvox_s"
+WORKLOADS = ["train-b8-p64"]
+
+
+def read(run):
+    return program.stage_ms("optimizer")

@@ -7,6 +7,11 @@ the host-to-device copy of batch N+1 overlap step N. Batches are pure
 functions of (seed, step), and ``state_dict()`` reports the CONSUMED step
 count — not how far the worker has run ahead — so kill-and-resume replays
 exactly the batches that were never consumed.
+
+Under a ``torch.profiler`` session (``utils/profiling.py``) the worker
+records ``feed.sample`` and ``feed.put`` spans, and the consumer a
+``feed.next`` span with the queue's depth as it found it (the
+``feed.depth`` counter: 0 means the step waited for a batch).
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Optional
+
+from tpuseg_torch.utils import profiling
+from tpuseg_torch.utils.profiling import span
 
 
 class BatchPrefetcher:
@@ -33,7 +41,10 @@ class BatchPrefetcher:
     def _worker(self):
         try:
             while not self._stop.is_set():
-                batch = self.put(self.sampler.next_batch())
+                with span("feed.sample"):
+                    batch = self.sampler.next_batch()
+                with span("feed.put"):
+                    batch = self.put(batch)
                 while not self._stop.is_set():
                     try:
                         self._q.put(batch, timeout=0.1)
@@ -44,6 +55,12 @@ class BatchPrefetcher:
             self._err = e
 
     def next(self):
+        with span("feed.next"):
+            if profiling.enabled():
+                profiling.count("feed.depth", self._q.qsize())
+            return self._next()
+
+    def _next(self):
         while True:
             if self._err is not None:
                 raise RuntimeError("prefetch worker failed") from self._err

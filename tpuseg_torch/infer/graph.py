@@ -74,10 +74,13 @@ from __future__ import annotations
 import functools
 import gc
 import time
+import weakref
 
 import torch
 
 from tpuseg_torch.ops import KERNEL_WRAPPERS, LAST_CALL_STATE
+from tpuseg_torch.utils import profiling
+from tpuseg_torch.utils.profiling import span
 
 COUNTER_ATTRS = ("launches", "mma_launches", "tile_launches")
 
@@ -194,6 +197,7 @@ class CudaGraphs:
                 with torch.cuda.graph(graph, pool=pool,
                                       capture_error_mode="thread_local"):
                     out = fn(*args)
+                    profiling.mark_end()
             finally:
                 if collecting:
                     gc.enable()
@@ -225,9 +229,15 @@ class GraphPool:
         return self._handle
 
 
+def _ungauge(program: str, reserved: int) -> None:
+    profiling.gauge(program, "graphs", -1)
+    profiling.gauge(program, "pool_bytes", -reserved)
+
+
 class _Graph:
     """One captured key: the graph, its static arguments and outputs, the
-    counters' change during the capture and the state it left."""
+    counters' change during the capture, the state it left and the stage
+    marks it took in (``marks``, ``utils/profiling.py``)."""
 
     def __init__(self, program, args):
         backend = program.backend
@@ -238,13 +248,21 @@ class _Graph:
         counters = _counters()
         before = [getattr(o, a) for o, a in counters]
         t0 = time.perf_counter()
-        self.graph, out, reserved = backend.capture(
-            program.eager, _rebuild(args, iter(self.inputs)),
-            program.pool.handle(), self.device, program.generators())
+        with profiling.capturing() as self.marks:
+            self.graph, out, reserved = backend.capture(
+                program.eager, _rebuild(args, iter(self.inputs)),
+                program.pool.handle(), self.device, program.generators())
         self._replay = functools.partial(backend.replay, self.graph,
                                          self.device)
         self.stats = {"capture_s": time.perf_counter() - t0,
                       "reserved_bytes": reserved}
+        for name, by in (("captures", 1), ("graphs", 1),
+                         ("pool_bytes", reserved)):
+            profiling.gauge(program.name, name, by)
+        # the graph's share of the gauges goes when it is released or dropped
+        self.ungauge = weakref.finalize(self, _ungauge, program.name,
+                                        reserved)
+        self.ungauge.atexit = False
         self.launches = [(o, a, getattr(o, a) - n)
                          for (o, a), n in zip(counters, before)
                          if getattr(o, a) != n]
@@ -252,15 +270,21 @@ class _Graph:
         self.state = [(h, a, getattr(h, a)) for h, a in program.state]
 
     def run(self, args, count: bool):
-        for s, t in zip(self.inputs, _tensors(args)):
-            s.copy_(t)
-        self._replay()
+        with span("program.copy_in"):
+            for s, t in zip(self.inputs, _tensors(args)):
+                s.copy_(t)
+        with span(profiling.REPLAY) as replay:
+            self._replay()
+        if replay is not None:
+            self.marks.launched(replay)
         if count:
             for o, a, n in self.launches:
                 setattr(o, a, getattr(o, a) + n)
         for h, a, value in self.state:
             setattr(h, a, value)
-        return _rebuild(self.structure, (t.clone() for t in self.outputs))
+        with span("program.clone_out"):
+            return _rebuild(self.structure,
+                            (t.clone() for t in self.outputs))
 
 
 class CapturedProgram:
@@ -277,13 +301,20 @@ class CapturedProgram:
     when it changes. ``autograd``: a training body (module docstring), run
     with autograd rather than under inference mode; ``generators``: a
     function of no arguments giving the generators the body draws from
-    (read at the capture). ``captures`` counts the graphs captured."""
+    (read at the capture). ``captures`` counts the graphs captured.
+    ``name`` owns the program's gauges in the recorder
+    (``utils/profiling.py``: ``captures``, and the live ``graphs`` and their
+    ``pool_bytes``); each call is a ``program.call`` span, with children
+    ``program.harvest`` (the last replays' stage marks read),
+    ``program.context``, ``program.eager``, ``program.capture``,
+    ``program.copy_in``, ``program.replay`` and ``program.clone_out``."""
 
     def __init__(self, fn, state=(), pool: GraphPool | None = None,
                  backend=CudaGraphs, context=None,
                  eager_reason: str | None = None, autograd: bool = False,
-                 generators=tuple):
+                 generators=tuple, name: str = "program"):
         self.eager, self.backend, self.context = fn, backend, context
+        self.name = name
         self.mode = eager_reason or "captured"
         self.state = LAST_CALL_STATE + tuple(state)
         self.pool = pool if pool is not None else GraphPool(backend)
@@ -296,23 +327,39 @@ class CapturedProgram:
         outputs still hold stays with those tensors); the next call of a
         key runs eagerly again."""
         graphs = [g.graph for g in self.graphs.values()]
+        for g in self.graphs.values():
+            g.ungauge()
         self.graphs, self._seen = {}, set()
         if graphs:
             self.backend.release(graphs)
 
     def __call__(self, *args):
-        with torch.inference_mode(not self.autograd):
+        with span(profiling.CALL), torch.inference_mode(not self.autograd):
+            if profiling.RECORDER.pending:
+                self._harvest()
             return self._call(*args)
+
+    def _harvest(self) -> None:
+        """Read the stages of this program's last replays, before a graph's
+        next launch overwrites them (``utils/profiling.py``)."""
+        with span(profiling.HARVEST):
+            for graph in self.graphs.values():
+                if graph.marks.launch is not None:
+                    graph.marks.harvest()
+
+    def _eager(self, why: str, args):
+        self.last_run = why
+        with span("program.eager"):
+            return self.eager(*args)
 
     def _call(self, *args):
         if self.mode != "captured":
-            self.last_run = self.mode
-            return self.eager(*args)
+            return self._eager(self.mode, args)
         if not self.backend.accepts({t.device for t in _tensors(args)}):
-            self.last_run = "eager: not on one CUDA device"
-            return self.eager(*args)
+            return self._eager("eager: not on one CUDA device", args)
         if self.context is not None:
-            context = self.context()
+            with span("program.context"):
+                context = self.context()
             if context != self._context:
                 self.release()
                 self._context = context
@@ -323,9 +370,9 @@ class CapturedProgram:
             return graph.run(args, count=True)
         if key not in self._seen:
             self._seen.add(key)
-            self.last_run = "eager: first sight"
-            return self.eager(*args)
-        graph = self.graphs[key] = _Graph(self, args)
+            return self._eager("eager: first sight", args)
+        with span("program.capture"):
+            graph = self.graphs[key] = _Graph(self, args)
         self.captures += 1
         self.last_run = "capture"
         # the capture itself moved the counters once
@@ -336,15 +383,16 @@ class Chain:
     """Two captured programs called one after the other, ``second(first(
     *args))``, on one memory pool: the reference's ``"staged"`` program
     (two jitted stages). ``eager`` is the unsplit body; ``context`` and
-    ``eager_reason`` are each program's."""
+    ``eager_reason`` are each program's, ``names`` their names."""
 
     def __init__(self, first, second, eager, backend=CudaGraphs,
-                 context=None, eager_reason: str | None = None):
+                 context=None, eager_reason: str | None = None,
+                 names=("program", "program")):
         pool = GraphPool(backend)
         self.programs = tuple(
             CapturedProgram(fn, pool=pool, backend=backend, context=context,
-                            eager_reason=eager_reason)
-            for fn in (first, second))
+                            eager_reason=eager_reason, name=name)
+            for fn, name in zip((first, second), names))
         self.eager, self.mode = eager, self.programs[0].mode
 
     def __call__(self, *args):

@@ -63,6 +63,7 @@ from tpuseg_torch.ops.filter import size_filter_and_compact
 from tpuseg_torch.ops.merge import saddle_merge
 from tpuseg_torch.ops.watershed import (flood_truncation_count,
                                         threshold_mask, watershed)
+from tpuseg_torch.utils.profiling import mark
 
 
 def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
@@ -93,6 +94,7 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
         # flat top merge; real instances keep their valley
         labels = saddle_merge(labels, peak_prob, pp.merge_saddle_ratio,
                               max_pairs=pp.merge_max_pairs, plain=plain)
+    mark("filter", labels)
     labels = size_filter_and_compact(labels, pp.min_size, plain=plain)
     return (labels, diag) if want_diag else labels
 
@@ -157,6 +159,7 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
     @torch.inference_mode()
     def stage_net(volume: torch.Tensor):
         _check_per_axis_halo(volume.shape)
+        mark("norm", volume)
         vol = volume.float()
         preprocess = None
         if normalize:
@@ -176,6 +179,7 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
 
     @torch.inference_mode()
     def stage_post(out):
+        mark("watershed", out["fg_logits"])
         fg_prob = torch.sigmoid(out["fg_logits"])
         peak_prob = torch.sigmoid(out["peak_logits"])
         return _postprocess(fg_prob, peak_prob, cfg, with_diagnostics, plain)
@@ -186,15 +190,18 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
     return infer, stage_net, stage_post
 
 
-def _captured(model, cfg: Config, infer, stage_net, stage_post):
+def _captured(model, cfg: Config, infer, stage_net, stage_post,
+              name: str = "infer"):
     """``InferConfig.program``'s structure as captured graphs: "fused" one
-    program of ``infer``, "staged" ``stage_net`` then ``stage_post``;
-    eager on every call where ``graph.eager_reason`` says so."""
+    program of ``infer``, "staged" ``stage_net`` then ``stage_post``
+    (named ``<name>.net`` and ``<name>.post``); eager on every call where
+    ``graph.eager_reason`` says so."""
     kw = {"context": lambda: module_state(model),
           "eager_reason": eager_reason(cfg)}
     if cfg.infer.program == "staged":
-        return Chain(stage_net, stage_post, eager=infer, **kw)
-    return CapturedProgram(infer, **kw)
+        return Chain(stage_net, stage_post, eager=infer,
+                     names=(f"{name}.net", f"{name}.post"), **kw)
+    return CapturedProgram(infer, name=name, **kw)
 
 
 def make_infer_fn(model, cfg: Config, normalize: bool = True,
@@ -239,7 +246,8 @@ def make_batched_infer_fn(model, cfg: Config, normalize: bool = True):
     def post_batch(outs: list) -> torch.Tensor:
         return torch.stack([stage_post(o) for o in outs])
 
-    return _captured(model, cfg, infer_batch, net_batch, post_batch)
+    return _captured(model, cfg, infer_batch, net_batch, post_batch,
+                     name="infer.batch")
 
 
 def infer_volume(model, volume, cfg: Config, normalize: bool = True,

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.utils.profiling import mark
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -87,7 +89,13 @@ def tiled_forward(
     """Whole-volume logits ``{"fg_logits", "peak_logits"}``, each (D, H, W)
     in ``compute_dtype``. ``preprocess`` (e.g. the percentile normalization)
     runs on each float32 block before the cast to ``compute_dtype``, as
-    elementwise ops commute with slicing."""
+    elementwise ops commute with slicing. Its device stages
+    (``utils/profiling.mark``) take turns: ``tile_glue`` (the pad and the
+    accumulators, then the block stack, ``preprocess`` and the cast of the
+    first tile batch), ``net`` (``model``), ``tile_glue`` (the batch's core
+    write-back and the next batch's blocks), ... and a last ``tile_glue``,
+    the last batch's write-back."""
+    mark("tile_glue", volume)
     D, H, W = volume.shape
     td, th, tw = tile
     hd, hh, hw = halo3(halo)
@@ -113,7 +121,13 @@ def tiled_forward(
                               for z, y, x in batch])[:, None]
         if preprocess is not None:
             blocks = preprocess(blocks)
-        out = model(blocks.to(compute_dtype))
+        cast = blocks.to(compute_dtype)
+        mark("net", volume)
+        out = model(cast)
+        # the cast's lifetime ends at the call, as when it was an argument:
+        # the graph pool's size follows the order of frees
+        del cast
+        mark("tile_glue", volume)
         for i, (z, y, x) in enumerate(batch):
             core = (slice(z, z + td), slice(y, y + th), slice(x, x + tw))
             fg_acc[core] = out["fg_logits"][i, hd:hd + td, hh:hh + th, hw:hw + tw]

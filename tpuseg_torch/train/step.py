@@ -62,6 +62,7 @@ from tpuseg_torch.infer.graph import (CapturedProgram, module_state,
 from tpuseg_torch.losses import total_loss
 from tpuseg_torch.ops._build import device_scalars
 from tpuseg_torch.parallel.collectives import group_mean
+from tpuseg_torch.utils.profiling import mark, span
 
 # random streams of one example (the JAX package's fold_in(key, idx) and
 # fold_in(fold_in(key, idx), 1))
@@ -281,9 +282,13 @@ def loss_fn(model, batch, cfg: Config, seed: int, step: int,
             example_offset: int = 0, apply_fn=None, generators=None):
     """``(loss, metrics)`` of the train-mode forward on one (micro)batch;
     ``apply_fn`` (``models/fused_train``) replaces ``model(x)``;
-    ``generators`` as :func:`prepare_batch` takes them."""
+    ``generators`` as :func:`prepare_batch` takes them. Device stages
+    (``utils/profiling.mark``): ``targets`` (:func:`prepare_batch`), then
+    ``forward`` (the net and the loss)."""
+    mark("targets", batch["image"])
     imgs, tgts = prepare_batch(batch, cfg, seed, step, example_offset,
                                generators)
+    mark("forward", imgs)
     out = (apply_fn or model)(imgs)
     return total_loss(out, tgts, cfg.train)
 
@@ -317,7 +322,11 @@ class TrainStep:
     ``state.opt``, calls the program and then advances ``state.step`` and
     ``state.opt.count``. ``eager(state, batch, seed)`` is the same step with
     the body run eagerly; ``program.mode`` says whether the step is
-    captured, ``program.last_run`` how the last call ran."""
+    captured, ``program.last_run`` how the last call ran. A step is a
+    ``step.call`` span (``utils/profiling.py``) around ``step.prepare``
+    (the host part) and the program's call; the body's device stages are
+    :func:`loss_fn`'s and ``backward`` per microbatch, then
+    ``optimizer`` (the global norm, the clipping and AdamW)."""
 
     def __init__(self, model, cfg: Config, group=None, grad_accum: int = 1):
         self.model, self.cfg = model, cfg
@@ -337,7 +346,7 @@ class TrainStep:
             self.body, autograd=True, context=self._context,
             generators=lambda: [g for gens in self.generators.values()
                                 for g in gens],
-            eager_reason=train_eager_reason(group))
+            eager_reason=train_eager_reason(group), name="train.step")
 
     def _context(self) -> tuple:
         """What the body reads besides its arguments: the model's storage
@@ -371,7 +380,10 @@ class TrainStep:
         return self._step(self.body, state, batch, seed)
 
     def _step(self, run, state, batch, seed):
-        metrics = run(*self.prepare(state, batch, seed))
+        with span("step.call"):
+            with span("step.prepare"):
+                args = self.prepare(state, batch, seed)
+            metrics = run(*args)
         state.opt.count += 1
         state.step += 1
         return metrics
@@ -392,10 +404,12 @@ class TrainStep:
                     for s, g in self.generators.items()}
             loss, metrics = loss_fn(model, micro, self.cfg, None, None,
                                     apply_fn=self.apply_fn, generators=gens)
+            mark("backward", loss)
             loss.backward()
             metrics = {n: v.detach() for n, v in metrics.items()}
             macc = metrics if macc is None else {
                 n: macc[n] + metrics[n] for n in macc}
+        mark("optimizer", hyper)
         grads = {n: p.grad / k if k > 1 else p.grad
                  for n, p in params.items()}
         if k > 1:
