@@ -8,7 +8,7 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the hand-written kernels (K1 seed, K2 chase, K3 flood, K4 fused
    eval ConvBlock, K5 peak NMS, K6 training conv, the histograms H1-H3
    of one-volume inference, the union-find closure U1 and the saddle
-   merge's pair-table kernels M1/M2) from
+   merge's pair-table kernels M1/M2, the decoder's up-conv) from
    ``tpuseg_torch/csrc`` and print nvcc's per-kernel register report;
 3. each kernel against its plain PyTorch twin on the card, elementwise, at
    the main-path shape 96x512x512 (analytic maps of a 600-instance
@@ -297,10 +297,20 @@ Phases, in order; any failure raises and exits non-zero:
     each, with the capture's time and pool beside the eager step's
     reserved growth and peak; last, the device time of one eager and one
     replayed step by kernel (``torch.profiler``).
+22. (needs no checkpoint) the decoder's upsample-and-conv kernel
+    (``ops/upconv.upsample_conv_cat``) against its twin at the three Up
+    levels of the main path's 96 x 272 x 512 block and at edge shapes (odd
+    extents, 2-byte staging, a ragged tile, several channel pieces and
+    output chunks, batch 2): the skip's copy equal, the up-conv within one
+    bf16 ulp at each rounding point; at the three levels the kernel's ms
+    beside its bound, the twin's and the library chain's (``F.interpolate``,
+    ``F.pad``, ``F.conv3d``, bias, ``torch.cat``). Phases 12 and 13 hold
+    its launches to 3 a tile of the fused bf16 apply, and 13 holds c3's
+    labels on the calibrated stack to ``plain=True``'s.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21 brings
-nothing). Without
+alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21 and 22
+bring nothing). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
@@ -340,6 +350,19 @@ RAGGED_BLOCK_SHAPE = (2, 5, 27, 45)
 # with ragged rows and columns
 EDGE_BLOCK_SHAPES = ((1, 1, 9, 20), (1, 37, 13, 70))
 BLOCK_CI = (1, 64, 32)                  # enc0, up0.block, head_trunk
+# the decoder's up-convs (ci, co, coarse d, h, w) on the main path's block,
+# 96 x 272 x 512 (c3's tile and halo): up2, up1, up0
+UPCONV_SHAPES = ((256, 128, 12, 34, 64), (128, 64, 24, 68, 128),
+                 (64, 32, 48, 136, 256))
+# the same on the default sweep's block (BLOCK_SHAPE, phase 12's): up2's
+# W = 20 takes the 2-byte staging with four pieces of 64 input channels
+UPCONV_DEFAULT = ((256, 128, 8, 20, 20), (128, 64, 16, 40, 40),
+                  (64, 32, 32, 80, 80))
+# edges of the up-conv kernel (batch, ci, co, d, h, w): odd extents and
+# W % 8 != 0 (2-byte staging), a ragged second tile of 64 along w with
+# vector staging, two pieces of 64 input channels, four chunks of 32 outputs
+UPCONV_EDGES = ((2, 64, 32, 3, 5, 7), (1, 128, 64, 5, 9, 100),
+                (2, 256, 128, 2, 3, 72))
 N_TILES = 48                            # blocks per 96x512x512 stack
 NUM_INSTANCES = 600
 SEED = 0
@@ -373,6 +396,10 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "pair_aggregate": ("tpuseg_torch/csrc/pairs.cu",
                        "tpuseg/ops/merge.py:57"),
     "pair_slots": ("tpuseg_torch/csrc/pairs.cu", "tpuseg/ops/merge.py:57"),
+    # nor the decoder's up-conv: XLA fuses the reference's broadcast-reshape
+    # upsample into the k=2 conv's input
+    "upsample_conv_cat": ("tpuseg_torch/csrc/upconv.cu",
+                          "tpuseg/models/blocks.py:232"),
 }
 # the saddle merge's pair-table kernels (ops/merge.py), launched once each
 # by every merge-on call, once each a shard by a sharded one
@@ -464,6 +491,10 @@ PAIR_CHUNK_SHAPE = (160, 1024, 1024)
 SENT32 = 2 ** 31 - 1                    # an unused slot of the int32 tables
 RF_PROBE = 128                          # > 2 x the 4-level net's radius (~53)
 VARIANT_STEPS = 2                       # (g): cli.train steps of the variant
+# the share of c3's labels on the calibrated stack that may differ from the
+# module chain's when the up-conv kernel takes its place (on an H100: 18 of
+# 25,165,824 voxels, 7e-7)
+C3_CHAIN_LABEL_SHARE = 1e-5
 
 
 class AnalyticNet(nn.Module):
@@ -1516,10 +1547,111 @@ def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
             raise AssertionError(
                 f"config {tag[0]} launched K4 {launches['fused_convblock']} "
                 f"times ({mma} on the tensor cores), not {want_k4}")
+        if launches["upsample_conv_cat"] != want_k4:
+            raise AssertionError(
+                f"config {tag[0]} launched upsample_conv_cat "
+                f"{launches['upsample_conv_cat']} times, not {want_k4} (3 a "
+                "tile under the fused bf16 apply)")
         if labels.shape != MAIN_SHAPE or m["f1"] < f1_floor - 0.02:
             raise AssertionError(
                 f"config {tag[0]}: F1@IoU0.5 {m['f1']:.4f} is more than 0.02 "
                 f"below phase 9's calibrated {f1_floor:.4f}")
+
+
+def _module_up_chain(x, skip, w, b):
+    """The chain the up-conv kernel replaced, as ``fused_eval``'s up-conv
+    (``w`` packed): ``Up.up``'s nearest x2, (0, 1) pad and cuDNN k=2 conv,
+    ``Conv3d``'s bias add in the compute dtype, ``Up.forward``'s
+    concatenation."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops.upconv import unpack_upconv_weights
+
+    up = F.pad(F.interpolate(x, scale_factor=2, mode="nearest"),
+               (0, 1, 0, 1, 0, 1))
+    y = F.conv3d(up, unpack_upconv_weights(w).to(x.dtype))
+    return torch.cat([y + b.to(x.dtype).view(1, -1, 1, 1, 1), skip], dim=1)
+
+
+def c3_labels_against_plain(ckpt_dir: str, vol_path: str,
+                            ann_path: str) -> None:
+    """Phase 13: c3's fused apply (K4 and the up-conv kernel, 3 launches a
+    tile) on the calibrated stack against three others that differ from it
+    in the order of the up-convs' float32 sums only, or in K4's too: the
+    up-convs' twin alone (K4's kernel kept), ``plain=True`` (every twin),
+    and the chain the up-conv kernel replaced (``_module_up_chain``,
+    cuDNN). Each gives the same instances (equal counts, F1@IoU0.5 1
+    between the label maps); the labels differ from the module chain's on
+    at most ``C3_CHAIN_LABEL_SHARE`` of the voxels; the logits are within
+    phase 12's bounds of the twins'. The label and logit gaps of each are
+    printed. Not voxel for voxel against the twins: the kernel and cuDNN sum
+    on the tensor cores, the twin in SIMT float32 (phase 22 rounds all three
+    against the exact sum), 1-2 bf16 ulps apart on ~1e-4 of the up-convs'
+    outputs, and a trained net's boundary voxels move with that."""
+    import tpuseg_torch.models.fused_eval as fused_eval
+    from tpuseg_torch.cli.infer import calibrated
+    from tpuseg_torch.core import Config
+    from tpuseg_torch.infer import make_infer_stages
+
+    image = np.load(vol_path)
+    cfg = calibrated(Config().override(**C3_SETS), ann_path, image.size)
+    model = trained_model(ckpt_dir, cfg).eval()
+    vol = torch.from_numpy(image).cuda()
+    kernel = fused_eval.upsample_conv_cat
+
+    def run(plain=False, up=kernel):
+        fused_eval.upsample_conv_cat = up
+        try:
+            _, net, post = make_infer_stages(model, cfg, plain=plain)
+            logits = net(vol)
+            return logits, post(logits)
+        finally:
+            fused_eval.upsample_conv_cat = kernel
+
+    before = _launches()["upsample_conv_cat"]
+    logits, labels = run()
+    torch.cuda.synchronize()
+    n_up = _launches()["upsample_conv_cat"] - before
+    if n_up != 6:
+        raise AssertionError(f"c3 call launched upsample_conv_cat {n_up} "
+                             "times, not 3 a tile")
+    others = {
+        "the up-convs' twin alone": run(up=fused_eval.upsample_conv_cat_plain),
+        "plain=True (every twin)": run(plain=True),
+        "the module chain (cuDNN)": run(up=_module_up_chain)}
+    for tag, (other_logits, other) in others.items():
+        m = f1_iou50_on_card(labels.cpu().numpy(), other.cpu().numpy())
+        diff = int((labels != other).sum())
+        gaps = ", ".join(
+            f"{k} unequal on {float((v != other_logits[k]).float().mean()):.4f}"
+            f", max abs err "
+            f"{float((v.float() - other_logits[k].float()).abs().max()):.3g}"
+            for k, v in logits.items())
+        print(f"[13] c3 fused apply on the calibrated stack against {tag}: "
+              f"{m['n_pred']} / {m['n_gt']} instances, F1@IoU0.5 "
+              f"{m['f1']:.4f}, labels differ on {diff} of {labels.numel()} "
+              f"voxels; logits: {gaps}", flush=True)
+        if m["f1"] < 1.0 or m["n_pred"] != m["n_gt"]:
+            raise AssertionError(f"c3 with the up-conv kernel: instances "
+                                 f"differ from {tag}'s ({m})")
+        if tag.startswith("the module") and \
+                diff > C3_CHAIN_LABEL_SHARE * labels.numel():
+            raise AssertionError(
+                f"c3 with the up-conv kernel: labels differ from the module "
+                f"chain's on {diff} voxels, more than {C3_CHAIN_LABEL_SHARE} "
+                "of them")
+    twin_logits = others["plain=True (every twin)"][0]
+    for k, got in logits.items():
+        err = (got.float() - twin_logits[k].float()).abs()
+        top = float(twin_logits[k].float().abs().max())
+        frac = float((err <= 0.02 * top).float().mean())
+        if float(err.max()) > 0.1 * top or frac < 0.995:
+            raise AssertionError(f"c3 {k}: kernels != twins (max abs err "
+                                 f"{float(err.max()):.3g}, max |logit| "
+                                 f"{top:.3g}, within 2% {frac:.5f})")
+    print(f"[13] c3: upsample_conv_cat launched {n_up} times (3 a tile); "
+          "logits within phase 12's bounds of the twins'; labels within "
+          f"{C3_CHAIN_LABEL_SHARE} of the module chain's", flush=True)
 
 
 def free_host_gb() -> float:
@@ -3408,6 +3540,159 @@ def phase_convblock():
             **records[64]}
 
 
+def _exact_upconv(x, wp) -> torch.Tensor:
+    """The up-conv of ``x`` without its bias as float64 sums of the exact
+    bf16 products (the parity form, each (class, tap) one float64 GEMM):
+    the value each float32 sum approximates, within ~1e-16 of it."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from tpuseg_torch.ops.upconv import unpack_upconv_weights
+
+    k = unpack_upconv_weights(wp).double()
+    n, _, d, h, w = x.shape
+    xp = F.pad(x.double(), (0, 1, 0, 1, 0, 1))
+    out = x.new_empty((n, k.shape[0], d, 2, h, 2, w, 2), dtype=torch.float64)
+    bits = (0, 1)
+    for pd, ph, pw in itertools.product(bits, bits, bits):
+        acc = 0
+        for kd, kh, kw in itertools.product(bits, bits, bits):
+            sd, sh, sw = pd & kd, ph & kh, pw & kw
+            acc = acc + torch.einsum("nidhw,oi->nodhw",
+                                     xp[:, :, sd:sd + d, sh:sh + h, sw:sw + w],
+                                     k[:, :, kd, kh, kw])
+        out[:, :, :, pd, :, ph, :, pw] = acc
+    return out.reshape(n, -1, 2 * d, 2 * h, 2 * w)
+
+
+def _not_nearest(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """Share of the bf16 ``got`` that is not the bf16 value nearest the
+    float64 ``exact``: farther from it than half its ulp."""
+    _, e = torch.frexp(exact.abs())
+    half = torch.ldexp(torch.ones_like(exact), e - 9)
+    return float(((got.double() - exact).abs() > half).double().mean())
+
+
+def phase_upconv():
+    """The decoder's upsample-and-conv kernel against its twin at the three
+    Up levels of the main path's 96 x 272 x 512 block, of the default
+    sweep's 64 x 160 x 160 block (``UPCONV_DEFAULT``) and at its edge
+    shapes (``UPCONV_EDGES``): the skip's copy equal, the up-conv within
+    one bf16 ulp at each rounding point (kernel and twin sum in other
+    orders; a sum that cancels is held at 2^-12 of the largest, as
+    ``tests/test_torch_upconv.py``); one launch a call. At the main path's
+    three levels: the rounding of kernel, twin and the library chain it
+    replaces (``_module_up_chain``, cuDNN) against the exact sum
+    (``_exact_upconv``), and the times of the kernel (weights packed once,
+    as the fused apply calls it), its bound, the twin and the library chain
+    (``F.interpolate``, ``F.pad``, ``F.conv3d``, the bias add,
+    ``torch.cat``)."""
+    from tpuseg_torch.ops.upconv import (pack_upconv_weights,
+                                         upsample_conv_cat,
+                                         upsample_conv_cat_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+
+    def ulp(v):
+        v = v.float().abs()
+        return bf16_ulp(torch.clamp(v, min=float(v.max()) * 2.0 ** -12))
+
+    cases = ([(1, *c) for c in UPCONV_SHAPES + UPCONV_DEFAULT]
+             + list(UPCONV_EDGES))
+    records, exact, rounding = {}, [], {}
+    for n, ci, co, d, h, w in cases:
+        x = randn(n, ci, d, h, w).bfloat16()
+        skip = randn(n, co, 2 * d, 2 * h, 2 * w).bfloat16()
+        wt = randn(co, ci, 2, 2, 2) / (8 * ci) ** 0.5
+        b = randn(co)
+        wp, bb = pack_upconv_weights(wt.bfloat16()), b.bfloat16()
+        zero = torch.zeros_like(bb)
+        tag = f"({n}, {ci}, {d}, {h}, {w}) -> {co}"
+        before = upsample_conv_cat.launches
+        got = upsample_conv_cat(x, skip, wp, bb)
+        want = upsample_conv_cat_plain(x, skip, wp, b)
+        pre = upsample_conv_cat_plain(x, skip, wp, zero)[:, :co]
+        torch.cuda.synchronize()
+        if upsample_conv_cat.launches - before != 1:
+            raise AssertionError(f"[22] upsample_conv_cat {tag}: not one "
+                                 "launch")
+        if not torch.equal(got[:, co:], want[:, co:]):
+            raise AssertionError(f"[22] upsample_conv_cat {tag}: the skip's "
+                                 "copy != skip")
+        gap = (got[:, :co].float() - want[:, :co].float()).abs()
+        lim = ulp(pre) + ulp(want[:, :co])
+        same = float((gap == 0).float().mean())
+        exact.append(same)
+        if not bool((gap <= lim).all()):
+            raise AssertionError(
+                f"[22] upsample_conv_cat {tag}: kernel != twin beyond one "
+                f"ulp at each rounding point (max abs err "
+                f"{float(gap.max()):.3g}, equal {same:.6f})")
+        print(f"[22] upsample_conv_cat {tag}: == twin (skip copy exact; "
+              f"up-conv equal on {same:.6f} of the elements, the rest within "
+              f"one ulp at each rounding point, max abs err "
+              f"{float(gap.max()):.3g})", flush=True)
+        del want, gap, lim
+        if n == 1 and (ci, co, d, h, w) in UPCONV_SHAPES:
+            # each sum rounded once to bf16, without the bias: which of the
+            # three is the bf16 value nearest the exact sum, and where they
+            # part from each other
+            ref = _exact_upconv(x, wp)
+            sums = {"kernel": upsample_conv_cat(x, skip, wp, zero)[:, :co],
+                    "cuDNN chain": _module_up_chain(x, skip, wp, zero)[:, :co],
+                    "twin": pre}
+            r = {f"not_nearest.{k}": _not_nearest(v, ref)
+                 for k, v in sums.items()}
+            for a, c in (("kernel", "cuDNN chain"), ("kernel", "twin"),
+                         ("cuDNN chain", "twin")):
+                r[f"unequal.{a}/{c}"] = float(
+                    (sums[a] != sums[c]).float().mean())
+            rounding[ci] = r
+            print(f"[22] upsample_conv_cat {tag}, sums without the bias "
+                  "against the exact (float64) sum: share not rounded to "
+                  "the nearest bf16 " + ", ".join(
+                      f"{k[12:]} {v:.3g}" for k, v in r.items()
+                      if k.startswith("not_")) + "; share unequal "
+                  + ", ".join(f"{k[8:]} {v:.3g}" for k, v in r.items()
+                              if k.startswith("unequal")), flush=True)
+            del ref, sums
+            fine = 8 * d * h * w
+            n_bytes = 2 * (ci * d * h * w + co * fine + 2 * co * fine
+                           + 8 * ci * co + co)
+            flop = 2 * 8 * ci * co * fine
+            ms = cuda_ms(lambda: upsample_conv_cat(x, skip, wp, bb), 10)
+            records[ci] = {
+                "ms": ms,
+                "plain_ms": cuda_ms(
+                    lambda: upsample_conv_cat_plain(x, skip, wp, bb), 2),
+                "library_ms": cuda_ms(
+                    lambda: _module_up_chain(x, skip, wp, bb), 5),
+                **bound(n_bytes, flop, BF16_FLOPS)}
+            r = records[ci]
+            print(f"[22] upsample_conv_cat {tag}: kernel {ms:.3f} ms "
+                  f"({flop / ms / 1e9:.1f} TFLOP/s, {n_bytes / ms / 1e6:.0f} "
+                  f"GB/s), bound {r['bound_ms']:.3f} ms by {r['bound_by']}, "
+                  f"twin {r['plain_ms']:.3f} ms, library chain "
+                  f"{r['library_ms']:.3f} ms (ratio "
+                  f"{ms / r['library_ms']:.3f})", flush=True)
+        del x, skip, got, pre
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in records.values())
+             for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"[22] one block's three up-convs: kernel {total['ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.3f}, twin {total['plain_ms']:.3f}, "
+          f"library chain {total['library_ms']:.3f} (ratio "
+          f"{total['ms'] / total['library_ms']:.3f})", flush=True)
+    # the record: up0, the largest of the three
+    return {"shape": [1, *UPCONV_SHAPES[-1][:1], *UPCONV_SHAPES[-1][2:]],
+            "equal_share_min": min(exact), "rounding": rounding,
+            **records[64]}
+
+
 def pool_nms(peak, threshold: float, radius):
     """The library call timed beside K5: ``F.max_pool3d`` local maxima at or
     above the threshold, without the index tie-break on plateaus (float
@@ -3547,6 +3832,7 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
         tmp, ckpt, vol_path, "fused", 'infer.apply_impl="fused"')
     k4_launches = launches["fused_convblock"]
     k4_mma = _mma_launches()["fused_convblock"]
+    up_launches = launches["upsample_conv_cat"]
     ids = np.unique(labels)
     print(f"[12] cli.infer, fused apply: status {status}, {ids.size - 1} "
           f"instances (plain apply: {int(default_labels.max())}); kernel "
@@ -3555,6 +3841,9 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
         raise AssertionError(f"fused main path launched K4 {k4_launches} "
                              f"times ({k4_mma} on the tensor cores), not "
                              f"{3 * N_TILES}")
+    if up_launches != 3 * N_TILES:
+        raise AssertionError(f"fused main path launched upsample_conv_cat "
+                             f"{up_launches} times, not {3 * N_TILES}")
     missing = [k for k in INFER_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"fused main path never launched {missing}")
@@ -3661,6 +3950,7 @@ def phase_fused_main_path(image: np.ndarray, default_labels: np.ndarray,
     check_launches_per_pass(torch.sigmoid(logits["plain"]["fg_logits"]).float(),
                             torch.sigmoid(logits["plain"]["peak_logits"]).float())
     return ({"fused_convblock": k4_launches,
+             "upsample_conv_cat": up_launches,
              "fused_peak_nms": launches["fused_peak_nms"]},
             {"fused_peak_nms": k5_tiles})
 
@@ -4953,7 +5243,8 @@ def phase_graphs(sv, ckpt_dir: str, ann_path: str, fixtures, tmp: str):
                           ("calibrated c3, --shard z2,y2",
                            lambda: shard.eager(*args))):
             profile_device_time(label, fn, top=10, phase=20,
-                                parts=("sort", "convblock", "upsample"))
+                                parts=("sort", "convblock", "upsample",
+                                       "upconv"))
 
     return recs, profile
 
@@ -5232,6 +5523,7 @@ def main(argv=None):
             trained = _timed("phase 9", phase_trained_quality, sv, tmp)
             if want(13):
                 _timed("phase 13", phase_bench_configs, sv, *trained, tmp)
+                c3_labels_against_plain(*trained[:3])
             stream_sv = None
             if want(14):
                 streamed, stream_sv = _timed("phase 14", phase_stream,
@@ -5262,6 +5554,8 @@ def main(argv=None):
                 launches.update(counts)
     if want(10):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
+    if want(22):
+        kernels["upsample_conv_cat"] = _timed("phase 22", phase_upconv)
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
     if want(12):

@@ -8,8 +8,12 @@ tile sweep (``infer/tiles.py``) uses in the model's place:
 * enc0, up0.block and head_trunk (the three 32-channel full-resolution
   ConvBlocks) run as ``ops.convblock.fused_convblock``, their BatchNorm
   running statistics folded to float32 affines;
-* the mid net (down0 .. up0.up_conv) runs the model's own modules in eval
-  mode;
+* in bf16, each Up level's upsample, k=2 conv, bias and skip concatenation
+  run as ``ops.upconv.upsample_conv_cat`` on the coarse tensor, with the
+  module path's products and rounding points; in float32 they run
+  ``Up.up`` and ``torch.cat`` (the route is the model's dtype);
+* the rest of the mid net (down0 .. bottleneck, the ConvBlocks of up1 ..)
+  runs the model's own modules in eval mode;
 * the 1x1x1 heads are ``models.blocks.head_logits``: a float32-accumulated
   channel contraction of the compute-dtype trunk plus a float32 bias.
 
@@ -29,22 +33,30 @@ import torch
 
 from tpuseg_torch.core import ModelConfig
 from tpuseg_torch.core.dtypes import resolve
-from tpuseg_torch.models.blocks import ConvBlock, head_logits
+from tpuseg_torch.models.blocks import ConvBlock, Up, head_logits
 from tpuseg_torch.models.unet3d import UNet3D
 from tpuseg_torch.ops.convblock import (block_bodies, fold_bn_affine,
                                         fused_convblock,
                                         fused_convblock_plain, kernel_weights)
+from tpuseg_torch.ops.upconv import (kernel_takes, pack_upconv_weights,
+                                     upsample_conv_cat,
+                                     upsample_conv_cat_plain)
 
 
 def fused_apply_supported(config: ModelConfig) -> bool:
     """The fused block is specialized to the flagship family: 32-channel
-    full-resolution blocks, eval BatchNorm, ReLU."""
+    full-resolution blocks, eval BatchNorm, ReLU; in bf16 each Up level's
+    widths are ones the up-conv kernel takes (``ops.upconv.kernel_takes``:
+    ci a multiple of 64 up to 320, co of 32)."""
+    f = config.features
     return (
         config.norm == "batch"
         and config.activation == "relu"
-        and len(config.features) >= 2
-        and config.features[0] == 32
+        and len(f) >= 2
+        and f[0] == 32
         and config.head_features == 32
+        and (resolve(config.compute_dtype) != torch.bfloat16
+             or all(kernel_takes(f[i + 1], f[i]) for i in range(len(f) - 1)))
     )
 
 
@@ -61,21 +73,41 @@ def _block_args(block: ConvBlock, compute_dtype: str):
     return out
 
 
+def _up_args(up: Up):
+    """An Up level's k=2 conv -> ``upsample_conv_cat``'s (w, b): the kernel
+    packed in bf16, the bias in bf16."""
+    return (pack_upconv_weights(up.up_conv.weight.to(torch.bfloat16)),
+            up.up_conv.bias.detach().to(torch.bfloat16))
+
+
 def make_fused_apply(model: UNet3D, plain: bool = False):
     """Build ``apply_fn(x) -> {"fg_logits", "peak_logits"}`` for a U-Net in
     eval mode; raises ValueError for a config the fused block does not cover
-    (:func:`fused_apply_supported`). ``plain=True`` runs the block's plain
-    twin on whatever device ``x`` is on: the card's check of the kernel."""
+    (:func:`fused_apply_supported`). ``plain=True`` runs the plain twins
+    of the block and of the up-convs on whatever device ``x`` is on: the
+    card's check of the kernels."""
     cfg = model.config
     if not fused_apply_supported(cfg):
         raise ValueError(
             "fused eval apply requires norm='batch', activation='relu', "
-            f"features[0]==head_features==32; got {cfg}")
+            "features[0]==head_features==32 and, in bfloat16, each Up "
+            "level's ci a multiple of 64 up to 320 and co of 32; got "
+            f"{cfg}")
     dtype = model.dtype
     levels = len(cfg.features)
     block_fn = fused_convblock_plain if plain else fused_convblock
     enc0, up0, trunk = (_block_args(b, cfg.compute_dtype) for b in
                         (model.enc0, model.up0.block, model.head_trunk))
+    ups = [getattr(model, f"up{i}") for i in range(levels - 1)]
+    if dtype == torch.bfloat16:
+        up_args = [_up_args(up) for up in ups]
+        up_fn = upsample_conv_cat_plain if plain else upsample_conv_cat
+
+    def up_cat(i, h, skip):
+        """Level i's up-conv of ``h`` concatenated with ``skip``."""
+        if dtype == torch.bfloat16:
+            return up_fn(h, skip, *up_args[i])
+        return torch.cat([ups[i].up(h), skip.to(h.dtype)], dim=1)
 
     @torch.no_grad()
     def apply_fn(x):  # (N, 1, d, h, w) or (N, d, h, w)
@@ -92,9 +124,8 @@ def make_fused_apply(model: UNet3D, plain: bool = False):
             skips.append(h)
         h = model.bottleneck(getattr(model, f"down{levels - 2}")(h))
         for i in reversed(range(1, levels - 1)):
-            h = getattr(model, f"up{i}")(h, skips[i - 1])
-        t = torch.cat([model.up0.up(h), skip0], dim=1)
-        t = block_fn(t, *up0, cfg.compute_dtype)
+            h = ups[i].block(up_cat(i, h, skips[i - 1]))
+        t = block_fn(up_cat(0, h, skip0), *up0, cfg.compute_dtype)
         t = block_fn(t, *trunk, cfg.compute_dtype)
         return {"fg_logits": head_logits(model.fg_head, t),
                 "peak_logits": head_logits(model.peak_head, t)}

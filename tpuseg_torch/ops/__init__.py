@@ -3,9 +3,11 @@ watershed (with the K1-K3 kernels; see ``ops/watershed.py``), saddle merge,
 connected components, instance sizes and the size filter, compact relabel,
 the histograms of one-volume inference (H1-H3, ``ops/hist.py``), the
 saddle merge's pair table (M1, M2, ``ops/merge.py``), the union-find
-closure of the merge and the sharded paths (U1, ``ops/closure.py``), the fused eval ConvBlock (K4, ``ops/convblock.py``) and the training path's
-3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies share the weight
-layout of ``ops/conv_mma.py``."""
+closure of the merge and the sharded paths (U1, ``ops/closure.py``), the
+fused eval ConvBlock (K4, ``ops/convblock.py``), the decoder's
+upsample-and-conv with its skip concatenation (``ops/upconv.py``) and the
+training path's 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies
+share the weight layout of ``ops/conv_mma.py``."""
 
 from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
@@ -28,6 +30,7 @@ from tpuseg_torch.ops.resolve import LAST_CALL_STATE as _RESOLVE_STATE
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve, flood_pass,
                                       flood_resolve)
 from tpuseg_torch.ops.seed import seed_chase_pass
+from tpuseg_torch.ops.upconv import upsample_conv_cat, upsample_conv_cat_plain
 from tpuseg_torch.ops.watershed import (ascent_labels,
                                         flood_truncation_count,
                                         steepest_dir_codes, watershed)
@@ -36,7 +39,8 @@ from tpuseg_torch.ops.watershed import (ascent_labels,
 #: ``.launches`` counter
 KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
-                   label_counts, union_closure, pair_aggregate, pair_slots)
+                   label_counts, union_closure, pair_aggregate, pair_slots,
+                   upsample_conv_cat)
 
 #: the state the wrappers keep about their last call, ``(holder,
 #: attribute)``, declared by each wrapper's module
@@ -55,5 +59,6 @@ __all__ = [
     "radius3", "saddle_merge", "saddle_merge_edges", "saddle_merge_table",
     "seed_chase_pass", "seed_labels_from_peaks", "size_filter",
     "size_filter_and_compact", "steepest_dir_codes", "union_closure",
-    "union_closure_plain", "watershed",
+    "union_closure_plain", "upsample_conv_cat", "upsample_conv_cat_plain",
+    "watershed",
 ]

@@ -60,6 +60,8 @@ SIGNATURES = {
     "tpuseg_union_closure": [_P, _P, _L, _P, _P, _P, _L, _I, _P],
     "tpuseg_pair_aggregate": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _P],
     "tpuseg_pair_select": [_P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "tpuseg_upsample_conv_cat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
     "tpuseg_pair_slots": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _F, _L, _L,
                           _P, _P, _P, _P],
 }
