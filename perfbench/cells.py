@@ -3,10 +3,25 @@
 ``BENCHMARK.json`` names each cell with its configuration and traffic mix;
 the files are ``workloads/<cell>.json`` (the cell's own settings: its
 traced units, its output check's sample and limits), ``configs/<config>.json``
-and ``traffic/<mix>.json``. A per-layer metric is ``metrics/<name>.py``:
-``LAYER``, ``UNIT``, ``MOVES``, ``SOURCE``, an optional ``WORKLOADS`` and
-``read(run) -> float | None``. Adding a cell, a configuration, a mix or a
-metric adds files and ``BENCHMARK.json`` entries; nothing here changes.
+and ``traffic/<mix>.json``. Code that belongs to one name is a module of
+its own, loaded by file path:
+
+* ``arch/<name>.py``: an architecture, named by a configuration's ``arch``
+  key (``unet3d`` where it has none). It builds the program's model,
+  draws and names its state, holds the plain float32 reference forward and
+  counts its work (:func:`load_arch`). The drivers, the weights and the
+  reference trainer reach the model only through it.
+* ``generators/<name>.py``: a traffic generator, named by a mix's
+  ``volumes.generator`` key (``nuclei`` where it has none), read by
+  ``gen.volumes_for``.
+* ``metrics/<name>.py``: one per-layer metric's reader: ``LAYER``,
+  ``UNIT``, ``MOVES``, ``SOURCE`` and ``read(run) -> float | None``. The
+  cells a metric is read in are its ``workloads`` in ``BENCHMARK.json``,
+  and only there.
+
+Adding a cell, a configuration, an architecture, a mix, a generator or a
+metric adds files and ``BENCHMARK.json`` entries (a new cell joins a
+metric by its name in that metric's ``workloads``); nothing here changes.
 """
 
 from __future__ import annotations
@@ -89,14 +104,46 @@ def load_cell(name: str, bench: dict | None = None,
     return Cell(name, entry, spec, config, traffic, e2e, layer)
 
 
+#: each module :func:`load_module` has executed, by its file's path
+_MODULES: dict = {}
+
+
+def load_module(folder: str, name: str, here: Path = HERE):
+    """The module of ``<folder>/<name>.py``, executed once a process;
+    raises FileNotFoundError for a name that has no file there."""
+    path = here / folder / f"{name}.py"
+    if path in _MODULES:
+        return _MODULES[path]
+    if not path.is_file():
+        raise FileNotFoundError(f"no {folder}/{name}.py in {here}")
+    modname = f"perfbench_{folder}_" + name.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(modname, path)
+    mod = importlib.util.module_from_spec(spec)
+    # classes and dataclasses look their module up while they are made
+    sys.modules[modname] = mod
+    spec.loader.exec_module(mod)
+    _MODULES[path] = mod
+    return mod
+
+
 def load_metric(name: str, here: Path = HERE):
     """The module of ``metrics/<name>.py``."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_module("metrics", name, here)
+
+
+def arch_name(config: dict) -> str:
+    """A configuration's architecture: its ``arch`` key, or the U-Net."""
+    return config.get("arch", "unet3d")
+
+
+def load_arch(name: str, here: Path = HERE):
+    """The module of ``arch/<name>.py``: ``program_overrides(model)``,
+    ``build(cfg, model, device)``, ``state_shapes(model)``,
+    ``init_state(model, seed, device)``, ``is_statistic(name)``,
+    ``forward(p, x, model, train=False, stats=None, quant=None)``,
+    ``flops_per_voxel(model)``, ``work(model, kind, **shapes)`` and
+    ``SOURCES``; ``model`` is a configuration's ``model`` group."""
+    return load_module("arch", name, here)
 
 
 def metric_names(here: Path = HERE) -> list:
@@ -114,10 +161,12 @@ def sections(config: dict) -> dict:
 
 
 def program_config(config: dict, **extra):
-    """The program's ``Config`` with every stated setting applied."""
+    """The program's ``Config`` with every stated setting applied: the
+    architecture's ``model.*`` overrides, then the ``settings``."""
     from tpuseg_torch.core import Config
 
-    sets = {f"model.{k}": v for k, v in config["model"].items()}
+    arch = load_arch(arch_name(config))
+    sets = dict(arch.program_overrides(config["model"]))
     sets.update(config["settings"])
     sets["train.ckpt_dir"] = str(CACHE / "ckpt")
     sets.update(extra)

@@ -27,7 +27,7 @@ def infer_control(cell, seed: int, device="cuda") -> dict:
     from perfbench import gen, infer_cell, weights
     from perfbench.reference.quant import fp8
 
-    stacks = gen.make_volumes(cell.traffic["volumes"], seed, device)
+    stacks = gen.volumes_for(cell.traffic["volumes"], seed, device)
     state = weights.trained_state(cell.config, device)
     inputs = [(v, None, None) for v in stacks[:cell.spec["check"].get(
         "samples", 1)]]
@@ -39,19 +39,20 @@ def train_control(cell, seed: int, device="cuda") -> dict:
     import numpy as np
     from tpuseg_torch.data.sampler import PatchSampler
 
-    from perfbench import gen, train_cell, weights
+    from perfbench import cells, gen, train_cell
     from perfbench.reference.quant import fp8
 
     vols = [gen.Volume(v.image.cpu().numpy(), v.centers, v.half_sizes)
-            for v in gen.make_volumes(cell.traffic["volumes"], seed, device)]
+            for v in gen.volumes_for(cell.traffic["volumes"], seed, device)]
     s = cell.config["settings"]
     sampler = PatchSampler(vols, patch_size=s["data.patch_size"],
                            batch_size=s["data.batch_size"],
                            max_instances=s["data.max_instances"],
                            seed=gen.sub_seed(seed, 5))
     batches = [sampler.next_batch() for _ in range(train_cell.CHECKED)]
-    state0 = weights.init_state(cell.config["model"], gen.sub_seed(seed, 3),
-                                device)
+    arch = cells.load_arch(cells.arch_name(cell.config))
+    state0 = arch.init_state(cell.config["model"], gen.sub_seed(seed, 3),
+                             device)
     step_seed = gen.sub_seed(seed, 6)
     want = train_cell.reference_run(cell, state0, batches, step_seed, device)
     out = {}

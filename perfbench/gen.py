@@ -1,16 +1,14 @@
-"""Traffic generation: synthetic nuclei stacks and their weak annotations,
-made from a seed.
+"""Traffic generation: what every generator shares, and the lookup of a
+mix's generator by name.
 
-The shapes and distributions are those of
-``tpuseg_torch/data/synthetic.synthesize_volume``: gaussian-ellipsoid nuclei
-(radius drawn uniformly, scaled per axis by the anisotropy), rendered inside
-a 2.5-radius box, their per-voxel maximum plus additive gaussian noise,
-clipped to [0, 1]; centres drawn uniformly with a minimum distance. The
-centres and radii are drawn on the host with numpy (rejection sampling, as
-the original does); the image is rendered on the device in a few large
-calls and its noise drawn there from a seeded ``torch.Generator``, so a
-201-Mvox stack takes well under a second where the host copy takes ~12 s.
-The weak annotations are the centres and the box half-sizes (the radii).
+A mix's ``volumes`` group names its generator (``"generator"``, a module
+``generators/<name>.py`` with ``make_volumes(p, seed, device) ->
+[Volume]``; ``"nuclei"`` where it names none); :func:`volumes_for` finds
+it. This file holds what generators share: :class:`Volume`,
+:func:`sub_seed`, :func:`render` (the image on the device in a few large
+calls, its noise drawn there from a seeded ``torch.Generator``, so a
+201-Mvox stack takes well under a second where the host copy takes ~12 s),
+and the train loop's crop sampler, :func:`sample_patches`.
 """
 
 from __future__ import annotations
@@ -20,6 +18,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from perfbench import cells
 
 
 @dataclass
@@ -38,33 +38,6 @@ def sub_seed(seed: int, *key: int) -> int:
     state = np.random.SeedSequence([int(seed), *key]).generate_state(
         2, np.uint32)
     return (int(state[0]) << 31) ^ int(state[1])
-
-
-def draw_nuclei(shape, num: int, radius_range, anisotropy,
-                min_center_dist: float, rng: np.random.Generator):
-    """(centers, radii), (num, 3) float32: ``synthesize_volume``'s draw.
-    Raises if the shape cannot hold ``num`` nuclei at that distance, so
-    every seed gets the same number."""
-    d, h, w = shape
-    an = np.asarray(anisotropy, np.float64)
-    centers = np.empty((num, 3))
-    radii = np.empty((num, 3))
-    n = tries = 0
-    while n < num and tries < num * 50:
-        tries += 1
-        rr = rng.uniform(*radius_range) * an
-        c = np.array([rng.uniform(rr[0], d - rr[0]),
-                      rng.uniform(rr[1], h - rr[1]),
-                      rng.uniform(rr[2], w - rr[2])])
-        if n and np.min(np.linalg.norm(centers[:n] - c, axis=1)) \
-                < min_center_dist:
-            continue
-        centers[n], radii[n] = c, rr
-        n += 1
-    if n < num:
-        raise ValueError(f"{shape} holds only {n} of {num} nuclei at "
-                         f"distance {min_center_dist}")
-    return centers.astype(np.float32), radii.astype(np.float32)
 
 
 def render(shape, centers, radii, max_radii, noise: float,
@@ -105,23 +78,16 @@ def render(shape, centers, radii, max_radii, noise: float,
     return image.clamp_(0.0, 1.0)
 
 
-def make_volumes(p: dict, seed: int, device) -> list:
-    """The ``count`` volumes of a traffic file's ``volumes`` group
-    (``shape``, ``count``, ``nuclei``, ``radius_range``, ``anisotropy``,
-    ``noise``, ``min_center_dist``) made from ``seed``, images on
-    ``device``."""
-    out = []
-    for i in range(p["count"]):
-        rng = np.random.default_rng(sub_seed(seed, 1, i))
-        centers, radii = draw_nuclei(p["shape"], p["nuclei"],
-                                     p["radius_range"], p["anisotropy"],
-                                     p["min_center_dist"], rng)
-        g = torch.Generator(device=device)
-        g.manual_seed(sub_seed(seed, 2, i))
-        max_radii = [p["radius_range"][1] * a for a in p["anisotropy"]]
-        out.append(Volume(render(tuple(p["shape"]), centers, radii,
-                                 max_radii, p["noise"], g), centers, radii))
-    return out
+def generator(p: dict) -> str:
+    """The generator a ``volumes`` group names."""
+    return p.get("generator", "nuclei")
+
+
+def volumes_for(p: dict, seed: int, device) -> list:
+    """The volumes of a ``volumes`` group, made by its generator from
+    ``seed``, images on ``device``."""
+    mod = cells.load_module("generators", generator(p))
+    return mod.make_volumes(p, seed, device)
 
 
 def sample_patches(volumes, patch, batch: int, max_instances: int,

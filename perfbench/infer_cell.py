@@ -1,12 +1,14 @@
 """An inference cell: one caller in a closed loop, one stack a call.
 
-Set-up makes the traffic's stacks on the card from the seed, loads the
-configuration's trained weights (``weights.trained_state``), calibrates
-the configuration once from the first stack's weak annotations (the
-volume-matched fg threshold's target fraction, the per-axis NMS radius and
-the upper normalization percentile, as ``cli.infer --calibrate-from``
-does), builds ``make_infer_fn(model, cfg)`` and calls it three times: eager,
-capture, replay. The window then calls it stack after stack, cycling
+Set-up makes the traffic's stacks on the card from the seed (the mix's
+generator, ``gen.volumes_for``), loads the configuration's trained weights
+(``weights.trained_state``) into its architecture's model
+(``arch/<name>.py``: ``build``), calibrates the configuration once from
+the first stack's weak annotations (the volume-matched fg threshold's
+target fraction, the per-axis NMS radius and the upper normalization
+percentile, as ``cli.infer --calibrate-from`` does), builds
+``make_infer_fn(model, cfg)`` and calls it three times: eager, capture,
+replay. The window then calls it stack after stack, cycling
 through the stacks, each call timed from the call to the
 ``torch.cuda.synchronize()`` that ends it.
 
@@ -21,10 +23,10 @@ timed call (``make_infer_stages``' two stages, eager, same model and
 configuration) runs each sampled stack again and gives its logits and
 labels; its labels must equal the timed call's. The reference works out
 each sampled stack's percentile scalars (held to H1 and H2's on the same
-stack), its logits over the same tile grid in float32, and the labels of
-its own post-processing applied to the twin's probability maps; the twin's
-maps are held to the reference's, and the timed call's labels must equal
-the reference's.
+stack), its logits over the same tile grid in float32 (the architecture's
+plain ``forward``), and the labels of its own post-processing applied to
+the twin's probability maps; the twin's maps are held to the reference's,
+and the timed call's labels must equal the reference's.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import cells, gen, tracing, weights, work
+from perfbench import cells, gen, tracing, weights
 from perfbench.reference import exact_float32, post, unet
 
 
@@ -56,11 +58,11 @@ def build(cell: cells.Cell, seed: int, device, **extra):
     """``(stacks, state, cfg, model, infer)``; ``extra`` settings over the
     configuration's."""
     from tpuseg_torch.infer.pipeline import make_infer_fn
-    from tpuseg_torch.models import UNet3D
 
+    arch = cells.load_arch(cells.arch_name(cell.config))
     state = weights.trained_state(cell.config, device)
     cells.phase("weights")
-    stacks = gen.make_volumes(cell.traffic["volumes"], seed, device)
+    stacks = gen.volumes_for(cell.traffic["volumes"], seed, device)
     cells.reset_peak(device)
     cells.phase("traffic")
     frac, radius, upper = calibration(cell.config, stacks[0])
@@ -69,9 +71,9 @@ def build(cell: cells.Cell, seed: int, device, **extra):
         "postproc.fg_target_fraction": frac,
         "postproc.nms_radius": list(radius),
         "data.normalize_pcts": [pcts[0], upper], **extra})
-    model = UNet3D(cfg.model)
+    model = arch.build(cfg, cell.config["model"], device)
     model.load_state_dict(state)
-    model.to(device).eval()
+    model.eval()
     infer = make_infer_fn(model, cfg)
     cells.phase("program")
     return stacks, state, cfg, model, infer
@@ -165,18 +167,17 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     if trace:
         tr = tracing.Trace(trace_path)
         breakdown = tr.breakdown()
-        flops, nbytes = work.k4_work(cell.config["model"],
-                                     stacks[0].image.shape,
-                                     cfg.infer.tile, cfg.infer.halo)
-        fpv = work.unet_flops_per_voxel(cell.config["model"]["features"],
-                                        cell.config["model"]["in_channels"],
-                                        cell.config["model"]["head_features"])
+        arch = cells.load_arch(cells.arch_name(cell.config))
+        m = cell.config["model"]
         r = cells.Run(units=i, window_s=window,
                       spans={"enqueue": enq, "sweep": sweep, "post": post_t,
                              "unit": lat},
                       counters={"chase_passes": passes}, trace=tr,
-                      work={"k4": (flops, nbytes),
-                            "model_flops": voxels * fpv})
+                      work={**arch.work(m, "infer",
+                                        shape=stacks[0].image.shape,
+                                        tile=cfg.infer.tile,
+                                        halo=cfg.infer.halo),
+                            "model_flops": voxels * arch.flops_per_voxel(m)})
         metrics = cells.read_metrics(cell, r)
     metrics = {k: v for k, v in metrics.items()
                if k in {m["name"] for m in (cell.per_layer if trace
@@ -245,8 +246,12 @@ def readings(cell, state, calibrated_on, inputs, scalars=None,
     as the program was."""
     exact_float32()
     s = cells.sections(cell.config)
-    levels = len(s["model"]["features"])
+    arch = cells.load_arch(cells.arch_name(cell.config))
     p32 = {k: v.float() for k, v in state.items()}
+
+    def forward(quant=None):
+        return lambda x: arch.forward(p32, x, s["model"], quant=quant)
+
     out = {"pct_gap": 0.0, "prob_gap_max": 0.0, "prob_gap_mean": 0.0,
            "label_mismatch": 0.0}
     cal = post.calibration(calibrated_on.half_sizes,
@@ -260,14 +265,13 @@ def readings(cell, state, calibrated_on, inputs, scalars=None,
             out["pct_gap"] = max(out["pct_gap"],
                                  abs(scalars[n][0] - float(p_lo)),
                                  abs(scalars[n][1] - float(p_hi)))
-        ref = unet.tiled_logits(p32, vol.image, s["infer"]["tile"],
+        ref = unet.tiled_logits(forward(), vol.image, s["infer"]["tile"],
                                 s["infer"]["halo"],
-                                post.normalizer(p_lo, p_hi), levels)
+                                post.normalizer(p_lo, p_hi))
         if logits is None:         # the control: the reference, rounded
-            logits = unet.tiled_logits(p32, vol.image, s["infer"]["tile"],
-                                       s["infer"]["halo"],
-                                       post.normalizer(p_lo, p_hi), levels,
-                                       quant=quant)
+            logits = unet.tiled_logits(forward(quant), vol.image,
+                                       s["infer"]["tile"], s["infer"]["halo"],
+                                       post.normalizer(p_lo, p_hi))
         maps = {}
         for key in ("fg_logits", "peak_logits"):
             got = torch.sigmoid(logits[key])

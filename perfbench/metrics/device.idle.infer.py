@@ -4,7 +4,6 @@ LAYER = "device (H100)"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

@@ -4,7 +4,6 @@ LAYER = "device (H100)"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 
 
 def read(run):

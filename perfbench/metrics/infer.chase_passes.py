@@ -7,7 +7,6 @@ LAYER = ("watershed and filter (ops/watershed.py, ops/seed.py, "
 UNIT = "passes"
 SOURCE = "program_counter"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

@@ -8,7 +8,6 @@ LAYER = "infer pipeline (infer/pipeline.py, infer/graph.py)"
 UNIT = "GiB"
 SOURCE = "program_counter"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

@@ -6,7 +6,6 @@ LAYER = "infer pipeline (infer/pipeline.py, infer/graph.py)"
 UNIT = "ms"
 SOURCE = "host_clock"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

@@ -10,7 +10,6 @@ LAYER = "infer pipeline (infer/pipeline.py, infer/graph.py)"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

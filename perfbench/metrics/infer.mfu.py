@@ -8,7 +8,6 @@ LAYER = "model step (whole stack)"
 UNIT = "%"
 SOURCE = "host_clock"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

@@ -7,7 +7,6 @@ LAYER = "net sweep (infer/tiles.py, models/unet3d.py, models/fused_eval.py)"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

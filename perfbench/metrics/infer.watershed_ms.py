@@ -9,7 +9,6 @@ LAYER = ("watershed and filter (ops/watershed.py, ops/seed.py, "
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 
 
 def read(run):

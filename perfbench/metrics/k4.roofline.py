@@ -9,7 +9,6 @@ LAYER = "kernel K4 (ops/convblock.py, csrc/convblock.cu)"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "infer_mvox_s"
-WORKLOADS = ["infer-stack600", "infer-ls201"]
 KERNELS = ("convblock_kernel", "convblock_mma_kernel")
 
 

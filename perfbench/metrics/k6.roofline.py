@@ -9,7 +9,6 @@ LAYER = "kernel K6 (ops/convtrain.py, csrc/convtrain.cu)"
 UNIT = "%"
 SOURCE = "device_trace"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 KERNELS = ("conv3x3_kernel", "conv3x3_mma_kernel")
 
 

@@ -8,7 +8,6 @@ LAYER = "data feed (data/sampler.py, data/prefetch.py)"
 UNIT = "batches"
 SOURCE = "program_counter"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 
 
 def read(run):

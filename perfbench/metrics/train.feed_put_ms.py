@@ -7,7 +7,6 @@ LAYER = "data feed (data/sampler.py, data/prefetch.py)"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 
 
 def read(run):

@@ -4,7 +4,6 @@ LAYER = "data feed (data/sampler.py, data/prefetch.py)"
 UNIT = "ms"
 SOURCE = "host_clock"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 
 
 def read(run):

@@ -8,7 +8,6 @@ LAYER = "model step (train)"
 UNIT = "%"
 SOURCE = "host_clock"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 
 
 def read(run):

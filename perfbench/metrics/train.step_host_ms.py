@@ -8,7 +8,6 @@ LAYER = "train step (train/step.py, infer/graph.py)"
 UNIT = "ms"
 SOURCE = "program_span"
 MOVES = "train_mvox_s"
-WORKLOADS = ["train-b8-p64"]
 
 
 def read(run):

@@ -1,7 +1,8 @@
 """The plain weakly supervised train step: the batch prepared from raw
-patches and their box annotations, the U-Net's train-mode forward and
-backward (``reference/unet.py``), the losses, clipping and AdamW, in
-float32.
+patches and their box annotations, the architecture's train-mode forward
+and backward (its plain reference ``forward``, handed in as the module of
+``arch/<name>.py``; the U-Net's is ``reference/unet.py``), the losses,
+clipping and AdamW, in float32.
 
 What the training configuration states, written out:
 
@@ -43,7 +44,6 @@ import math
 import numpy as np
 import torch
 
-from perfbench.reference import unet
 from perfbench.reference.post import BINS
 
 AUGMENT, ZSCALE = 0, 1
@@ -225,17 +225,18 @@ def learning_rate(train: dict, count: int) -> float:
 
 
 class Trainer:
-    """The reference's train state: float32 parameters, running statistics
-    and AdamW moments, from a state dict (copied)."""
+    """The reference's train state: float32 parameters, statistics (the
+    entries ``arch.is_statistic`` names, updated by the forward) and AdamW
+    moments, from a state dict (copied). ``arch`` is the architecture's
+    module: its ``forward`` and ``is_statistic``."""
 
-    def __init__(self, state: dict, cfg: dict, device, quant=None):
-        self.cfg, self.device, self.quant = cfg, device, quant
-        self.levels = len(cfg["model"]["features"])
+    def __init__(self, arch, state: dict, cfg: dict, device, quant=None):
+        self.arch, self.cfg, self.device, self.quant = arch, cfg, device, quant
         self.params = {k: v.detach().to(device).float().clone()
                        .requires_grad_(True)
-                       for k, v in state.items() if "running" not in k}
+                       for k, v in state.items() if not arch.is_statistic(k)}
         self.stats = {k: v.detach().to(device).float().clone()
-                      for k, v in state.items() if "running" in k}
+                      for k, v in state.items() if arch.is_statistic(k)}
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.count = 0
@@ -247,8 +248,8 @@ class Trainer:
         imgs, tgt = prepare_batch(raw, c["data"], seed, self.count,
                                   self.device)
         p = {**self.params, **self.stats}
-        out = unet.forward(p, imgs, self.levels, train=True,
-                           stats=self.stats, quant=self.quant)
+        out = self.arch.forward(p, imgs, c["model"], train=True,
+                                stats=self.stats, quant=self.quant)
         loss = losses(out, tgt, c["train"]["dice_weight"])
         names = list(self.params)
         grads = torch.autograd.grad(loss["loss"],

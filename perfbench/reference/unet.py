@@ -14,6 +14,8 @@ and biased variance, and updates the running statistics in place by
 
 ``quant``, where given, rounds every conv's input and kernel before the
 conv (``reference/quant.py``: the controls' lower precisions).
+:func:`tiled_logits`, the inference configurations' tile sweep, takes the
+forward it sweeps, of this or any other architecture.
 """
 
 from __future__ import annotations
@@ -83,13 +85,14 @@ def forward(p: dict, x: torch.Tensor, levels: int = 4, train: bool = False,
             "peak_logits": _conv(t, p, "peak_head", quant)[:, 0]}
 
 
-def tiled_logits(p: dict, volume: torch.Tensor, tile, halo, preprocess,
-                 levels: int = 4, quant=None) -> dict:
+def tiled_logits(forward, volume: torch.Tensor, tile, halo,
+                 preprocess) -> dict:
     """Whole-volume logits over the tile grid of an inference
     configuration: the volume edge-padded up to whole tiles and by the halo
     on both sides, each core tile's block (core + halo) run through
-    :func:`forward` after ``preprocess`` and its core kept. Float32, one
-    block at a time."""
+    ``forward`` ((1, d, h, w) float32 -> ``{"fg_logits", "peak_logits"}``
+    of that shape, any architecture's) after ``preprocess``, and its core
+    kept. Float32, one block at a time."""
     dd, hh, ww = volume.shape
     td, th, tw = tile
     hd, hy, hx = halo
@@ -106,10 +109,9 @@ def tiled_logits(p: dict, volume: torch.Tensor, tile, halo, preprocess,
                 for x in range(0, ww + pads[2], tw):
                     block = padded[z:z + td + 2 * hd, y:y + th + 2 * hy,
                                    x:x + tw + 2 * hx]
-                    res = forward(p, preprocess(block)[None], levels,
-                                  quant=quant)
-                    for k, v in res.items():
+                    res = forward(preprocess(block)[None])
+                    for k in out:
                         out[k][z:z + td, y:y + th, x:x + tw] = \
-                            v[0, hd:hd + td, hy:hy + th, hx:hx + tw]
+                            res[k][0, hd:hd + td, hy:hy + th, hx:hx + tw]
                     del res
     return {k: v[:dd, :hh, :ww] for k, v in out.items()}

@@ -12,7 +12,7 @@ import torch
 from perfbench import infer_cell, train_cell
 from perfbench.tests.tiny import tiny_cell
 
-CELLS = ["infer-stack600", "train-b8-p64"]
+CELLS = ["infer-stack600", "infer-touch400", "train-b8-p64"]
 
 
 def _run(name, seed=5):
@@ -75,6 +75,8 @@ def _half_the_batch(monkeypatch):
 
 FAULTS = [("infer-stack600", _alter_one_label),
           ("infer-stack600", _sweep_half_the_tiles),
+          ("infer-touch400", _alter_one_label),
+          ("infer-touch400", _sweep_half_the_tiles),
           ("train-b8-p64", _update_nothing),
           ("train-b8-p64", _half_the_batch)]
 

@@ -9,7 +9,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from perfbench import infer_cell, train_cell, weights
+from perfbench import cells, infer_cell, train_cell
 from perfbench.reference import post, train, unet
 from perfbench.tests.tiny import tiny_cell
 
@@ -27,7 +27,7 @@ def _program_unet(state):
 
 
 def _state(seed=1):
-    state = weights.init_state(MODEL, seed, "cpu")
+    state = cells.load_arch("unet3d").init_state(MODEL, seed, "cpu")
     g = torch.Generator().manual_seed(seed)
     for k, v in state.items():      # statistics and affines off (0, 1)
         if v.dim() == 1:
@@ -157,7 +157,8 @@ def test_prepared_batch_and_losses_match():
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["infer-stack600", "train-b8-p64"])
+@pytest.mark.parametrize("name", ["infer-stack600", "infer-touch400",
+                                  "train-b8-p64"])
 def test_a_float32_program_meets_the_reference(name):
     """With the configuration computing in float32, the whole check reads
     round-off: the reference and the program compute one function."""

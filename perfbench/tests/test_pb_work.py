@@ -5,7 +5,7 @@ state dict the benchmark draws."""
 import pytest
 import torch
 
-from perfbench import weights, work
+from perfbench import cells, work
 
 MODEL = {"in_channels": 1, "features": [32, 64, 128, 256],
          "head_features": 32}
@@ -52,13 +52,14 @@ def test_state_dict_matches_the_programs():
     from tpuseg_torch.core import ModelConfig
     from tpuseg_torch.models import UNet3D
 
+    arch = cells.load_arch("unet3d")
     want = {k: tuple(v.shape) for k, v in
             UNet3D(ModelConfig()).state_dict().items()}
-    assert weights.state_shapes(MODEL) == want
-    state = weights.init_state(MODEL, 3, "cpu")
+    assert arch.state_shapes(MODEL) == want
+    state = arch.init_state(MODEL, 3, "cpu")
     assert {k: tuple(v.shape) for k, v in state.items()} == want
     UNet3D(ModelConfig()).load_state_dict(state)
-    again = weights.init_state(MODEL, 3, "cpu")
+    again = arch.init_state(MODEL, 3, "cpu")
     assert all(torch.equal(state[k], again[k]) for k in state)
 
 

@@ -11,21 +11,31 @@ from __future__ import annotations
 
 import copy
 
-from perfbench import cells
+from perfbench import cells, gen
+
+#: a tiny mix's volumes by generator: the nuclei's stacks, and one
+#: touching pair beside one single nucleus
+SMALL = {"nuclei": {"shape": [8, 40, 32], "count": 2, "nuclei": 3,
+                    "radius_range": [2.0, 3.0],
+                    "anisotropy": [0.6, 1.0, 1.0], "noise": 0.05,
+                    "min_center_dist": 5.0},
+         "touching": {"generator": "touching", "shape": [8, 40, 32],
+                      "count": 2, "pairs": 1, "singles": 1,
+                      "touch_range": [0.5, 0.7], "radius_range": [2.0, 3.0],
+                      "anisotropy": [0.6, 1.0, 1.0], "noise": [0.05, 0.12],
+                      "min_center_dist": 8.0}}
 
 
 def tiny_cell(name: str) -> cells.Cell:
-    """``name``'s cell, its stacks, tiles, patches, weights recipe and
-    traced units cut to a CPU test's size."""
+    """``name``'s cell, its stacks (by its mix's generator), tiles,
+    patches, weights recipe and traced units cut to a CPU test's size."""
     cell = cells.load_cell(name)
     c = copy.deepcopy(cell.config)
     t = copy.deepcopy(cell.traffic)
     spec = copy.deepcopy(cell.spec)
-    small = {"shape": [8, 40, 32], "count": 2, "nuclei": 3,
-             "radius_range": [2.0, 3.0], "anisotropy": [0.6, 1.0, 1.0],
-             "noise": 0.05, "min_center_dist": 5.0}
+    small = SMALL["nuclei"]
     if c["kind"] == "infer":
-        t["volumes"] = small
+        t["volumes"] = copy.deepcopy(SMALL[gen.generator(t["volumes"])])
         c["settings"].update({"infer.tile": [8, 16, 32],
                               "infer.halo": [0, 4, 0]})
         c["weights"].update(steps=2, volumes=dict(small, count=1))

@@ -1,27 +1,30 @@
 """A training cell: a closed loop of optimizer steps, fed by the program's
 own prefetcher.
 
-Set-up makes the traffic's volumes from the seed (on the card, then on the
-host for the sampler), draws the initial weights on the card from the seed
-(``weights.init_state``), and wires the program as ``train/loop.train``
-does: ``make_train_step(model, cfg)`` fed by ``BatchPrefetcher(PatchSampler,
-upload)``, the upload pinning and copying without blocking. The first three
-steps run through that same step and feed (eager, capture, replay) and are
-the ones the check follows; the window then runs the same objects on,
-reading the metrics every ``train.log_every`` steps as the loop does, and
-ends at the first such read after ``--seconds``.
+Set-up makes the traffic's volumes from the seed (the mix's generator, on
+the card, then on the host for the sampler), draws the initial weights on
+the card from the seed (the architecture's ``init_state``,
+``arch/<name>.py``) into its model (``build``), and wires the program as
+``train/loop.train`` does: ``make_train_step(model, cfg)`` fed by
+``BatchPrefetcher(PatchSampler, upload)``, the upload pinning and copying
+without blocking. The first three steps run through that same step and
+feed (eager, capture, replay) and are the ones the check follows; the
+window then runs the same objects on, reading the metrics every
+``train.log_every`` steps as the loop does, and ends at the first such
+read after ``--seconds``.
 
 Check: the reference trainer (``reference/train.py``) starts from the same
 initial state dict on the same raw patches (recorded as the sampler handed
 them to the prefetcher) and follows the first three steps in float32. The
 compared numbers: each step's loss; the first gradient as the optimizer
 took it (the program's from its first moment after step 1), by the worst
-leaf of its norm; and the change of the parameters and of the running
-statistics after step 3, by the worst leaf of its norm. A leaf's gap is
-``|norm(program) - norm(reference)|`` over the larger of the reference's
-norm of that leaf and of the median leaf. Leaves whose reference gradient
-is under a thousandth of the median leaf's move by round-off alone and are
-left out of the gradient and parameter numbers.
+leaf of its norm; and the change of the parameters and of the statistics
+(the state the architecture's ``is_statistic`` names) after step 3, by the
+worst leaf of its norm. A leaf's gap is ``|norm(program) -
+norm(reference)|`` over the larger of the reference's norm of that leaf
+and of the median leaf. Leaves whose reference gradient is under a
+thousandth of the median leaf's move by round-off alone and are left out
+of the gradient and parameter numbers.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import cells, gen, tracing, weights, work
+from perfbench import cells, gen, tracing
 from perfbench.reference import exact_float32
 from perfbench.reference.train import B1, Trainer
 
@@ -79,7 +82,6 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         t_start: float, device="cuda") -> cells.Result:
     from tpuseg_torch.data.prefetch import BatchPrefetcher
     from tpuseg_torch.data.sampler import PatchSampler
-    from tpuseg_torch.models import UNet3D
     from tpuseg_torch.train.step import create_train_state, make_train_step
 
     cuda = torch.device(device).type == "cuda"
@@ -88,17 +90,18 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.synchronize()
 
+    arch = cells.load_arch(cells.arch_name(cell.config))
     vols = [gen.Volume(v.image.cpu().numpy(), v.centers, v.half_sizes)
-            for v in gen.make_volumes(cell.traffic["volumes"], seed, device)]
+            for v in gen.volumes_for(cell.traffic["volumes"], seed, device)]
     cells.phase("traffic")
-    state0 = weights.init_state(cell.config["model"], gen.sub_seed(seed, 3),
-                                device)
+    state0 = arch.init_state(cell.config["model"], gen.sub_seed(seed, 3),
+                             device)
     cells.reset_peak(device)
     cells.phase("weights")
     cfg = cells.program_config(cell.config)
-    model = UNet3D(cfg.model)
+    model = arch.build(cfg, cell.config["model"], device)
     model.load_state_dict(state0)
-    model.to(device).train()
+    model.train()
     tstate = create_train_state(model, cfg)
     step = make_train_step(model, cfg, grad_accum=cfg.train.grad_accum)
     sampler = Recorder(PatchSampler(vols, patch_size=cfg.data.patch_size,
@@ -170,11 +173,9 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         r = cells.Run(units=i, window_s=window,
                       spans={"feed_wait": waits, "enqueue": enq},
                       counters={}, trace=tr,
-                      work={"k6": work.k6_work(m, cfg.data.batch_size,
-                                               cfg.data.patch_size),
-                            "model_flops": 3 * vox * work.unet_flops_per_voxel(
-                                m["features"], m["in_channels"],
-                                m["head_features"])})
+                      work={**arch.work(m, "train", batch=cfg.data.batch_size,
+                                        patch=cfg.data.patch_size),
+                            "model_flops": 3 * vox * arch.flops_per_voxel(m)})
         metrics = cells.read_metrics(cell, r)
         device_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
     names = {m["name"] for m in (cell.per_layer if trace
@@ -210,7 +211,8 @@ def reference_run(cell, state0, batches, step_seed, device, quant=None):
     """The reference's three steps from ``state0``: losses, the first
     gradient and the state after."""
     exact_float32()
-    trainer = Trainer(state0, cells.sections(cell.config), device, quant)
+    trainer = Trainer(cells.load_arch(cells.arch_name(cell.config)), state0,
+                      cells.sections(cell.config), device, quant)
     losses, grad1 = [], None
     for n, raw in enumerate(batches):
         out = trainer.step(raw, step_seed)
