@@ -308,9 +308,24 @@ Phases, in order; any failure raises and exits non-zero:
     its launches to 3 a tile of the fused bf16 apply, and 13 holds c3's
     labels on the calibrated stack to ``plain=True``'s.
 
+23. (needs no checkpoint) SwinUNETR's shifted-window attention kernel
+    (``ops/window_attn.window_attention``, W1) against its twin at every
+    stage of a tile batch of four 96^3 blocks (343 windows x 3 heads, 64 x
+    6, 8 x 12 of 343 tokens, 1 x 24 of 216), shifted and unshifted, and at
+    the shrunk, anisotropic windows of small blocks; one launch a call, no
+    device memory beyond its output; at the published stages the kernel's
+    ms beside its bound, the twin's and the library's
+    (``F.scaled_dot_product_attention`` given the bias and mask as one
+    materialised (windows, heads, N, N) bf16 tensor). Then the main path:
+    SwinUNETR at its published widths (seeded weights, bf16) through
+    ``make_infer_fn`` on the 96 x 512 x 512 stack at the benchmark's tiles
+    (64 blocks of 96^3, 16 net calls of 4), captured: a replayed call
+    launches W1 8 times a net call, 128 in all (the final record's
+    ``launches``).
+
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21 and 22
-bring nothing). Without
+alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-23 bring
+nothing). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
@@ -366,6 +381,17 @@ UPCONV_EDGES = ((2, 64, 32, 3, 5, 7), (1, 128, 64, 5, 9, 100),
 N_TILES = 48                            # blocks per 96x512x512 stack
 NUM_INSTANCES = 600
 SEED = 0
+#: SwinUNETR's attention at a tile batch of four 96^3 blocks, per stage:
+#: (stage, blocks, windows a block per axis, window, heads, shifts)
+WATTN_STAGES = (("stage0", 4, (7, 7, 7), (7, 7, 7), 3, (0, 3)),
+                ("stage1", 4, (4, 4, 4), (7, 7, 7), 6, (0, 3)),
+                ("stage2", 4, (2, 2, 2), (7, 7, 7), 12, (0, 3)),
+                ("stage3", 4, (1, 1, 1), (6, 6, 6), 24, (0,)))
+#: the shrunk, anisotropic windows of a 32 x 64 x 64 block (stages 2, 3)
+#: and a ragged key tile: (name, blocks, windows, window, heads, shift)
+WATTN_EDGES = (("32x64x64 stage2", 2, (1, 2, 2), (4, 7, 7), 4, (0, 3, 3)),
+               ("32x64x64 stage3", 2, (1, 1, 1), (2, 4, 4), 8, (0, 0, 0)),
+               ("ragged", 3, (2, 1, 3), (5, 3, 7), 2, (2, 1, 3)))
 
 KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     "seed_chase_pass": ("tpuseg_torch/csrc/seed.cu",
@@ -400,10 +426,16 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     # upsample into the k=2 conv's input
     "upsample_conv_cat": ("tpuseg_torch/csrc/upconv.cu",
                           "tpuseg/models/blocks.py:232"),
+    # nor SwinUNETR's attention: the net is the port's alone
+    "window_attention": ("tpuseg_torch/csrc/window_attn.cu",
+                         "tpuseg_torch/models/swin_unetr.py"),
 }
 # the saddle merge's pair-table kernels (ops/merge.py), launched once each
 # by every merge-on call, once each a shard by a sharded one
 PAIR_KERNELS = ("pair_aggregate", "pair_slots")
+# SwinUNETR's attention (ops/window_attn.py): launched by that net alone
+# (phase 23; the benchmark's infer-swin-stack600), never by the U-Net's legs
+SWIN_KERNELS = ("window_attention",)
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
 HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
@@ -3094,9 +3126,9 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     # every kernel of a Pallas kernel; of the histograms, H3 counts labels
     # for the one-volume filter only (the sharded paths compact packed ids);
     # M1/M2 run with the saddle merge, which these legs leave off (phase 19
-    # holds them on the merge-on calls)
+    # holds them on the merge-on calls); W1 with SwinUNETR alone
     missing = [k for k in KERNELS if k not in ("label_counts",) + PAIR_KERNELS
-               and not acc.get(k)]
+               + SWIN_KERNELS and not acc.get(k)]
     if missing:
         raise AssertionError(f"[16] the multi-process paths never launched "
                              f"{missing}: {acc}")
@@ -3691,6 +3723,164 @@ def phase_upconv():
     return {"shape": [1, *UPCONV_SHAPES[-1][:1], *UPCONV_SHAPES[-1][2:]],
             "equal_share_min": min(exact), "rounding": rounding,
             **records[64]}
+
+
+def _wattn_library(qkv, table, window, shift, windows):
+    """``(call, bias bytes)``: ``F.scaled_dot_product_attention`` on the
+    same q, k, v with the bias and the mask materialised as one (windows,
+    heads, N, N) bf16 tensor, made once outside the call."""
+    from tpuseg_torch.ops.window_attn import bias_and_mask
+
+    bw, n, _, heads, hd = qkv.shape
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    bias, mask = bias_and_mask(table, window, shift, windows)
+    if mask is not None:
+        nw = mask.shape[0]
+        bias = (bias + mask)[None].expand(bw // nw, nw, heads, n, n)
+    bias = bias.reshape(-1, heads, n, n).expand(bw, heads, n, n) \
+        .to(torch.bfloat16).contiguous()
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=hd ** -0.5)
+    return call, bias.numel() * 2
+
+
+def phase_window_attention(image: np.ndarray):
+    """W1 against its twin and the float64 attention at SwinUNETR's stages
+    of a tile batch of four 96^3 blocks (``WATTN_STAGES``), shifted and
+    unshifted, and at shrunk, anisotropic and ragged windows
+    (``WATTN_EDGES``). Held: one launch a call; no device memory past the
+    output while it runs; the kernel within 0.03 of the twin (both round
+    q k^T's inputs alike; P is rounded to bf16 against the row's running
+    maximum in the kernel and its final maximum in the twin, and each
+    output is one bf16 rounding of a weighted mean of v's) and no further
+    from the float64 attention than 1.5x the twin plus 1e-3. At the
+    published stages the kernel's, the twin's and the library's ms, and the
+    kernel's bound. Last, W1's launches on the main path
+    (:func:`_wattn_main_path`). Returns ``(record, main-path launches)``."""
+    from tpuseg_torch.ops.window_attn import (window_attention,
+                                              window_attention_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = [(name, b, nw, win, heads, (s,) * 3 if s else (0, 0, 0))
+             for name, b, nw, win, heads, shifts in WATTN_STAGES
+             for s in shifts]
+    cases += list(WATTN_EDGES)
+    records, total = {}, {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                          "library_ms": 0.0}
+    for name, blocks, nw, win, heads, shift in cases:
+        n = win[0] * win[1] * win[2]
+        bw = blocks * nw[0] * nw[1] * nw[2]
+        qkv = torch.randn((bw, n, 3, heads, 16), device="cuda",
+                          generator=g).bfloat16()
+        table = torch.randn((13 ** 3, heads), device="cuda", generator=g)
+        tag = (f"{name}: {bw} windows x {heads} heads of {tuple(win)} "
+               f"shift {tuple(shift)}")
+        torch.cuda.synchronize()
+        before = window_attention.launches
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = window_attention(qkv, table, win, shift, nw)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - got.numel() * 2
+        if window_attention.launches - before != 1:
+            raise AssertionError(f"[23] window_attention {tag}: not one "
+                                 "launch")
+        if extra > 2 ** 20:
+            raise AssertionError(f"[23] window_attention {tag}: {extra} "
+                                 "bytes of device memory past its output")
+        want = window_attention_plain(qkv, table, win, shift, nw)
+        exact = window_attention_plain(qkv.double(), table, win, shift, nw)
+        gap = float((got.float() - want.float()).abs().max())
+        err_k = float((got.double() - exact).abs().max())
+        err_t = float((want.double() - exact).abs().max())
+        del exact
+        if not gap <= 0.03 or not err_k <= 1.5 * err_t + 1e-3:
+            raise AssertionError(
+                f"[23] window_attention {tag}: kernel vs twin max abs err "
+                f"{gap:.4g}; against float64 kernel {err_k:.4g}, twin "
+                f"{err_t:.4g}")
+        print(f"[23] window_attention {tag}: == twin (max abs err "
+              f"{gap:.4g}; against float64: kernel {err_k:.4g}, twin "
+              f"{err_t:.4g}; {extra} bytes past the output)", flush=True)
+        del want
+        if name.startswith("stage"):
+            n_bytes = bw * n * 4 * heads * 16 * 2 + 13 ** 3 * heads * 4
+            flop = bw * heads * 4 * n * n * 16
+            lib, bias_bytes = _wattn_library(qkv, table, win, shift, nw)
+            r = {"ms": cuda_ms(lambda: window_attention(
+                     qkv, table, win, shift, nw), 10),
+                 "plain_ms": cuda_ms(lambda: window_attention_plain(
+                     qkv, table, win, shift, nw), 2),
+                 "library_ms": cuda_ms(lib, 5),
+                 **bound(n_bytes, flop, BF16_FLOPS)}
+            del lib
+            records[f"{name} shift {shift[0]}"] = r
+            for k in total:
+                total[k] += r[k]
+            print(f"[23] window_attention {tag}: kernel {r['ms']:.3f} ms "
+                  f"({flop / r['ms'] / 1e9:.1f} TFLOP/s, "
+                  f"{n_bytes / r['ms'] / 1e6:.0f} GB/s), bound "
+                  f"{r['bound_ms']:.3f} ms by {r['bound_by']}, twin "
+                  f"{r['plain_ms']:.3f} ms, library "
+                  f"{r['library_ms']:.3f} ms with its {bias_bytes / 1e6:.0f} "
+                  f"MB bias (ratio {r['ms'] / r['library_ms']:.3f})",
+                  flush=True)
+        del qkv, table, got
+        torch.cuda.empty_cache()
+    print(f"[23] a tile batch's eight Swin blocks (stages 0-2 shifted and "
+          f"not, stage 3 twice unshifted): kernel "
+          f"{total['ms'] + records['stage3 shift 0']['ms']:.3f} ms, bound "
+          f"{total['bound_ms'] + records['stage3 shift 0']['bound_ms']:.3f}",
+          flush=True)
+    # the record: stage 0, shifted, the largest
+    return ({"shape": [4 * 343, 343, 3, 3, 16], **records["stage0 shift 3"]},
+            _wattn_main_path(image))
+
+
+def _wattn_main_path(image: np.ndarray) -> int:
+    """W1's launches in one replayed call of SwinUNETR (feature 48, seeded
+    weights, bf16) through ``make_infer_fn`` on ``image`` at the benchmark
+    cell's tiles: (96, 64, 64) with halo (0, 16, 16), blocks of 96^3, four a
+    net call. Held: the call captured, and two launches a stage (its two
+    Swin blocks), 8 a net call."""
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.infer import make_infer_fn
+    from tpuseg_torch.infer.tiles import tile_grid
+    from tpuseg_torch.models import build_swin_unetr
+    from tpuseg_torch.ops.window_attn import window_attention
+
+    model = build_swin_unetr(seed=SEED).cuda()
+    cfg = Config(infer=InferConfig(tile=(96, 64, 64), halo=(0, 16, 16),
+                                   tile_batch=4, compute_dtype="bfloat16",
+                                   apply_impl="flax", program="fused"))
+    infer = make_infer_fn(model, cfg)
+    vol = torch.from_numpy(image).cuda()
+    for _ in range(2):                  # eager, then the capture
+        infer(vol)
+    torch.cuda.synchronize()
+    window_attention.launches = 0
+    t0 = time.perf_counter()
+    infer(vol)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n = window_attention.launches
+    blocks = len(tile_grid(vol.shape, cfg.infer.tile))
+    calls = -(-blocks // cfg.infer.tile_batch)
+    if infer.mode != "captured" or n != 8 * calls:
+        raise AssertionError(f"[23] main path: mode {infer.mode}, "
+                             f"window_attention launched {n} times, not "
+                             f"8 a net call of {calls}")
+    print(f"[23] main path: SwinUNETR (feature 48, bf16) through "
+          f"make_infer_fn on {tuple(vol.shape)}, {blocks} blocks of 96^3 in "
+          f"{calls} net calls, captured: window_attention launched {n} "
+          f"times in a replayed call ({wall_ms:.1f} ms wall)", flush=True)
+    infer.release()
+    del infer, model, vol
+    torch.cuda.empty_cache()
+    return n
 
 
 def pool_nms(peak, threshold: float, radius):
@@ -5556,6 +5746,9 @@ def main(argv=None):
         kernels["fused_convblock"] = _timed("phase 10", phase_convblock)
     if want(22):
         kernels["upsample_conv_cat"] = _timed("phase 22", phase_upconv)
+    if want(23):
+        kernels["window_attention"], launches["window_attention"] = \
+            _timed("phase 23", phase_window_attention, sv.image)
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
     if want(12):

@@ -5,9 +5,10 @@ the histograms of one-volume inference (H1-H3, ``ops/hist.py``), the
 saddle merge's pair table (M1, M2, ``ops/merge.py``), the union-find
 closure of the merge and the sharded paths (U1, ``ops/closure.py``), the
 fused eval ConvBlock (K4, ``ops/convblock.py``), the decoder's
-upsample-and-conv with its skip concatenation (``ops/upconv.py``) and the
+upsample-and-conv with its skip concatenation (``ops/upconv.py``), the
 training path's 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies
-share the weight layout of ``ops/conv_mma.py``."""
+share the weight layout of ``ops/conv_mma.py``, and SwinUNETR's
+shifted-window attention (W1, ``ops/window_attn.py``)."""
 
 from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
@@ -34,13 +35,15 @@ from tpuseg_torch.ops.upconv import upsample_conv_cat, upsample_conv_cat_plain
 from tpuseg_torch.ops.watershed import (ascent_labels,
                                         flood_truncation_count,
                                         steepest_dir_codes, watershed)
+from tpuseg_torch.ops.window_attn import (window_attention,
+                                          window_attention_plain)
 
 #: the wrappers that launch the hand-written kernels, each with a
 #: ``.launches`` counter
 KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
                    label_counts, union_closure, pair_aggregate, pair_slots,
-                   upsample_conv_cat)
+                   upsample_conv_cat, window_attention)
 
 #: the state the wrappers keep about their last call, ``(holder,
 #: attribute)``, declared by each wrapper's module
@@ -60,5 +63,5 @@ __all__ = [
     "seed_chase_pass", "seed_labels_from_peaks", "size_filter",
     "size_filter_and_compact", "steepest_dir_codes", "union_closure",
     "union_closure_plain", "upsample_conv_cat", "upsample_conv_cat_plain",
-    "watershed",
+    "watershed", "window_attention", "window_attention_plain",
 ]

@@ -64,6 +64,8 @@ SIGNATURES = {
                                  _I, _P],
     "tpuseg_pair_slots": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _F, _L, _L,
                           _P, _P, _P, _P],
+    "tpuseg_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _P],
 }
 
 
