@@ -316,15 +316,26 @@ Phases, in order; any failure raises and exits non-zero:
     device memory beyond its output; at the published stages the kernel's
     ms beside its bound, the twin's and the library's
     (``F.scaled_dot_product_attention`` given the bias and mask as one
-    materialised (windows, heads, N, N) bf16 tensor). Then the main path:
-    SwinUNETR at its published widths (seeded weights, bf16) through
-    ``make_infer_fn`` on the 96 x 512 x 512 stack at the benchmark's tiles
-    (64 blocks of 96^3, 16 net calls of 4), captured: a replayed call
-    launches W1 8 times a net call, 128 in all (the final record's
-    ``launches``).
+    materialised (windows, heads, N, N) bf16 tensor).
+24. (needs no checkpoint) SwinUNETR's ResBlock InstanceNorm, add and
+    LeakyReLU (``ops/instnorm.instance_norm_lrelu``, N1) against its twin
+    (torch's ``instance_norm``, add and ``leaky_relu``) and the float64
+    value at each of the 20 calls of a tile batch of four 96^3 blocks (10
+    ResBlocks, two calls each: 48 x 96^3 down to 768 x 3^3) and at edge
+    shapes (planes of one voxel, planes that are not whole 16-byte vectors,
+    ragged chunks), bf16 and float32: two launches a call, two calls
+    bitwise equal, each value within its one rounding of the float64 value,
+    bf16's mean error no larger than the twin's; the kernel's ms beside its
+    bound by bytes and the twin's, per call and for a net call.
+    After 23 or 24, the main path: SwinUNETR at its published widths
+    (seeded weights, bf16) through ``make_infer_fn`` on the 96 x 512 x 512
+    stack at the benchmark's tiles (64 blocks of 96^3, 16 net calls of 4),
+    captured: a replayed call launches W1 8 times a net call, 128 in all,
+    and N1 40 times a net call (4 a ResBlock), 640 in all (the final
+    record's ``launches``).
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-23 bring
+alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-24 bring
 nothing). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
@@ -387,6 +398,20 @@ WATTN_STAGES = (("stage0", 4, (7, 7, 7), (7, 7, 7), 3, (0, 3)),
                 ("stage1", 4, (4, 4, 4), (7, 7, 7), 6, (0, 3)),
                 ("stage2", 4, (2, 2, 2), (7, 7, 7), 12, (0, 3)),
                 ("stage3", 4, (1, 1, 1), (6, 6, 6), 24, (0,)))
+#: SwinUNETR's ResBlocks at a tile batch of four 96^3 blocks: (block, its
+#: output channels, side, the R of its second call: the block's input "x"
+#: where ci == co, conv3's output normalized, "norm", elsewhere)
+INORM_BLOCKS = (("enc0", 48, 96, "norm"), ("enc1", 48, 48, "x"),
+                ("enc2", 96, 24, "x"), ("enc3", 192, 12, "x"),
+                ("bottleneck", 768, 3, "x"), ("dec4", 384, 6, "norm"),
+                ("dec3", 192, 12, "norm"), ("dec2", 96, 24, "norm"),
+                ("dec1", 48, 48, "norm"), ("dec0", 48, 96, "norm"))
+#: N1's edges: (name, shape, R): a 32^3 block's bottleneck (planes of one
+#: voxel), planes that are not whole 16-byte vectors, ragged chunks
+INORM_EDGES = (("32^3 bottleneck", (4, 768, 1, 1, 1), "x"),
+               ("odd planes", (2, 3, 5, 7, 11), "norm"),
+               ("ragged chunks", (1, 5, 33, 33, 17), "norm"),
+               ("odd chunks", (3, 2, 130, 131, 3), "x"))
 #: the shrunk, anisotropic windows of a 32 x 64 x 64 block (stages 2, 3)
 #: and a ragged key tile: (name, blocks, windows, window, heads, shift)
 WATTN_EDGES = (("32x64x64 stage2", 2, (1, 2, 2), (4, 7, 7), 4, (0, 3, 3)),
@@ -429,13 +454,17 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     # nor SwinUNETR's attention: the net is the port's alone
     "window_attention": ("tpuseg_torch/csrc/window_attn.cu",
                          "tpuseg_torch/models/swin_unetr.py"),
+    # nor its ResBlocks' InstanceNorm, add and LeakyReLU
+    "instance_norm_lrelu": ("tpuseg_torch/csrc/instnorm.cu",
+                            "tpuseg_torch/models/swin_unetr.py"),
 }
 # the saddle merge's pair-table kernels (ops/merge.py), launched once each
 # by every merge-on call, once each a shard by a sharded one
 PAIR_KERNELS = ("pair_aggregate", "pair_slots")
-# SwinUNETR's attention (ops/window_attn.py): launched by that net alone
-# (phase 23; the benchmark's infer-swin-stack600), never by the U-Net's legs
-SWIN_KERNELS = ("window_attention",)
+# SwinUNETR's attention (ops/window_attn.py) and ResBlock norms
+# (ops/instnorm.py): launched by that net alone (phases 23, 24; the
+# benchmark's infer-swin-stack600), never by the U-Net's legs
+SWIN_KERNELS = ("window_attention", "instance_norm_lrelu")
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
 HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
@@ -3126,7 +3155,7 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     # every kernel of a Pallas kernel; of the histograms, H3 counts labels
     # for the one-volume filter only (the sharded paths compact packed ids);
     # M1/M2 run with the saddle merge, which these legs leave off (phase 19
-    # holds them on the merge-on calls); W1 with SwinUNETR alone
+    # holds them on the merge-on calls); W1 and N1 with SwinUNETR alone
     missing = [k for k in KERNELS if k not in ("label_counts",) + PAIR_KERNELS
                + SWIN_KERNELS and not acc.get(k)]
     if missing:
@@ -3746,7 +3775,7 @@ def _wattn_library(qkv, table, window, shift, windows):
     return call, bias.numel() * 2
 
 
-def phase_window_attention(image: np.ndarray):
+def phase_window_attention():
     """W1 against its twin and the float64 attention at SwinUNETR's stages
     of a tile batch of four 96^3 blocks (``WATTN_STAGES``), shifted and
     unshifted, and at shrunk, anisotropic and ragged windows
@@ -3757,8 +3786,7 @@ def phase_window_attention(image: np.ndarray):
     output is one bf16 rounding of a weighted mean of v's) and no further
     from the float64 attention than 1.5x the twin plus 1e-3. At the
     published stages the kernel's, the twin's and the library's ms, and the
-    kernel's bound. Last, W1's launches on the main path
-    (:func:`_wattn_main_path`). Returns ``(record, main-path launches)``."""
+    kernel's bound. Returns the record."""
     from tpuseg_torch.ops.window_attn import (window_attention,
                                               window_attention_plain)
 
@@ -3836,20 +3864,26 @@ def phase_window_attention(image: np.ndarray):
           f"{total['bound_ms'] + records['stage3 shift 0']['bound_ms']:.3f}",
           flush=True)
     # the record: stage 0, shifted, the largest
-    return ({"shape": [4 * 343, 343, 3, 3, 16], **records["stage0 shift 3"]},
-            _wattn_main_path(image))
+    return {"shape": [4 * 343, 343, 3, 3, 16], **records["stage0 shift 3"]}
 
 
-def _wattn_main_path(image: np.ndarray) -> int:
-    """W1's launches in one replayed call of SwinUNETR (feature 48, seeded
-    weights, bf16) through ``make_infer_fn`` on ``image`` at the benchmark
-    cell's tiles: (96, 64, 64) with halo (0, 16, 16), blocks of 96^3, four a
-    net call. Held: the call captured, and two launches a stage (its two
-    Swin blocks), 8 a net call."""
+#: the hand-written kernels a SwinUNETR net call launches: W1 twice a stage
+#: (its two Swin blocks), N1 twice a call of 10 ResBlocks' two
+SWIN_LAUNCHES_PER_NET_CALL = {"window_attention": 8,
+                              "instance_norm_lrelu": 40}
+
+
+def swin_main_path(image: np.ndarray) -> dict:
+    """W1's and N1's launches in one replayed call of SwinUNETR (feature
+    48, seeded weights, bf16) through ``make_infer_fn`` on ``image`` at the
+    benchmark cell's tiles: (96, 64, 64) with halo (0, 16, 16), blocks of
+    96^3, four a net call. Held: the call captured, and
+    ``SWIN_LAUNCHES_PER_NET_CALL`` of each a net call."""
     from tpuseg_torch.core import Config, InferConfig
     from tpuseg_torch.infer import make_infer_fn
     from tpuseg_torch.infer.tiles import tile_grid
     from tpuseg_torch.models import build_swin_unetr
+    from tpuseg_torch.ops.instnorm import instance_norm_lrelu
     from tpuseg_torch.ops.window_attn import window_attention
 
     model = build_swin_unetr(seed=SEED).cuda()
@@ -3861,26 +3895,157 @@ def _wattn_main_path(image: np.ndarray) -> int:
     for _ in range(2):                  # eager, then the capture
         infer(vol)
     torch.cuda.synchronize()
-    window_attention.launches = 0
+    wrappers = {"window_attention": window_attention,
+                "instance_norm_lrelu": instance_norm_lrelu}
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     infer(vol)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    n = window_attention.launches
+    n = {k: w.launches for k, w in wrappers.items()}
     blocks = len(tile_grid(vol.shape, cfg.infer.tile))
     calls = -(-blocks // cfg.infer.tile_batch)
-    if infer.mode != "captured" or n != 8 * calls:
-        raise AssertionError(f"[23] main path: mode {infer.mode}, "
-                             f"window_attention launched {n} times, not "
-                             f"8 a net call of {calls}")
-    print(f"[23] main path: SwinUNETR (feature 48, bf16) through "
+    want = {k: m * calls for k, m in SWIN_LAUNCHES_PER_NET_CALL.items()}
+    if infer.mode != "captured" or n != want:
+        raise AssertionError(f"[23-24] main path: mode {infer.mode}, "
+                             f"launches {n}, not {want} ({calls} net calls)")
+    print(f"[23-24] main path: SwinUNETR (feature 48, bf16) through "
           f"make_infer_fn on {tuple(vol.shape)}, {blocks} blocks of 96^3 in "
-          f"{calls} net calls, captured: window_attention launched {n} "
-          f"times in a replayed call ({wall_ms:.1f} ms wall)", flush=True)
+          f"{calls} net calls, captured: a replayed call launched "
+          f"window_attention {n['window_attention']} times and "
+          f"instance_norm_lrelu {n['instance_norm_lrelu']} times "
+          f"({wall_ms:.1f} ms wall)", flush=True)
     infer.release()
     del infer, model, vol
     torch.cuda.empty_cache()
     return n
+
+
+def _inorm_inputs(shape, dtype, form, g):
+    """Conv-output-like ``(a, r, norm_r)``: per-plane offsets and
+    scales."""
+    def one():
+        stat = (shape[0], shape[1]) + (1,) * (len(shape) - 2)
+        off = torch.randn(stat, device="cuda", generator=g)
+        scale = 0.2 + 3 * torch.rand(stat, device="cuda", generator=g)
+        return (off + scale * torch.randn(shape, device="cuda", generator=g)
+                ).to(dtype)
+    return one(), None if form == "none" else one(), form == "norm"
+
+
+def _inorm_exact(a, r, norm_r):
+    """float64 of N1's formula on the stored values, and 1 + |IN(a)| +
+    |R| (the scale of float32's slack)."""
+    def norm(t):
+        t = t.double()
+        var, mean = torch.var_mean(t, tuple(range(2, t.dim())),
+                                   correction=0, keepdim=True)
+        return (t - mean) / torch.sqrt(var + 1e-5)
+
+    y = norm(a)
+    rr = torch.zeros_like(y) if r is None else (
+        norm(r) if norm_r else r.double())
+    s = y + rr
+    return torch.where(s > 0, s, s * 0.01), 1 + y.abs() + rr.abs()
+
+
+def _inorm_check(tag, a, r, norm_r) -> dict:
+    """One N1 call against its twin and float64 (phase 24's holds)."""
+    from tpuseg_torch.ops.instnorm import (instance_norm_lrelu,
+                                           instance_norm_lrelu_plain)
+
+    before = instance_norm_lrelu.launches
+    got = instance_norm_lrelu(a, r, norm_r)
+    again = instance_norm_lrelu(a, r, norm_r)
+    torch.cuda.synchronize()
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
+    if instance_norm_lrelu.launches - before != 4:
+        raise AssertionError(f"[24] instance_norm_lrelu {tag}: not two "
+                             "launches a call")
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise AssertionError(f"[24] instance_norm_lrelu {tag}: two calls "
+                             "differ")
+    twin = instance_norm_lrelu_plain(a, r, norm_r)
+    exact, scale = _inorm_exact(a, r, norm_r)
+    err = (got.double() - exact).abs()
+    err_twin = (twin.double() - exact).abs()
+    if got.dtype == torch.bfloat16:
+        e = torch.floor(torch.log2(exact.abs().clamp(min=2.0 ** -126)))
+        over = err - (torch.exp2(e - 8) + 1e-5 * scale)
+        ok = float(over.max()) <= 0 and float(err.mean()) <= float(
+            err_twin.mean())
+    else:
+        over = err - 1e-5 * scale
+        ok = float(over.max()) <= 0
+    rec = {"max_err": float(err.max()), "mean_err": float(err.mean()),
+           "twin_max_err": float(err_twin.max()),
+           "twin_mean_err": float(err_twin.mean()),
+           "gap_to_twin": float((got.float() - twin.float()).abs().max())}
+    del twin, exact, scale, err, err_twin, over, again
+    if not ok:
+        raise AssertionError(f"[24] instance_norm_lrelu {tag}: past its one "
+                             f"rounding of the float64 value: {rec}")
+    print(f"[24] instance_norm_lrelu {tag}: within one rounding of float64 "
+          f"(max {rec['max_err']:.3g}, mean {rec['mean_err']:.3g}; twin "
+          f"{rec['twin_max_err']:.3g}, {rec['twin_mean_err']:.3g}; "
+          f"kernel vs twin {rec['gap_to_twin']:.3g}), two calls equal "
+          f"bitwise", flush=True)
+    return rec
+
+
+def phase_instance_norm():
+    """N1 against its twin and float64 at every ResBlock call of a tile
+    batch of four 96^3 blocks (``INORM_BLOCKS``) and at ``INORM_EDGES``,
+    bf16 and float32 (held: two launches a call, two calls bitwise equal,
+    every value within one rounding of the float64 value plus float32's
+    slack, bf16's mean error no larger than the twin's); at the main path's
+    calls (bf16) the kernel's ms beside its bound by bytes and the twin's,
+    and their sums over a net call. Returns the record."""
+    from tpuseg_torch.ops.instnorm import (instance_norm_lrelu,
+                                           instance_norm_lrelu_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = [(f"{name} {'conv1' if form == 'none' else 'conv2'}",
+              (4, c, side, side, side), form)
+             for name, c, side, second in INORM_BLOCKS
+             for form in ("none", second)]
+    cases += list(INORM_EDGES)
+    r_text = {"none": "0", "x": "r", "norm": "IN(r)"}
+    records, total = {}, {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape, form in cases:
+            a, r, norm_r = _inorm_inputs(shape, dtype, form, g)
+            tag = (f"{name}: {tuple(shape)} {str(dtype)[6:]}, R "
+                   f"{r_text[form]}")
+            rec = _inorm_check(tag, a, r, norm_r)
+            if dtype == torch.bfloat16 and name.endswith(("conv1", "conv2")):
+                passes = {"none": 3, "x": 4, "norm": 5}[form]
+                n_bytes = passes * a.numel() * a.element_size()
+                rec.update({
+                    "ms": cuda_ms(lambda: instance_norm_lrelu(a, r, norm_r),
+                                  10),
+                    "plain_ms": cuda_ms(lambda: instance_norm_lrelu_plain(
+                        a, r, norm_r), 5),
+                    **bound(n_bytes, 0, BF16_FLOPS)})
+                records[name] = {"shape": list(shape), "form": form, **rec}
+                for k in total:
+                    total[k] += rec[k]
+                print(f"[24] instance_norm_lrelu {tag}: kernel "
+                      f"{rec['ms']:.3f} ms ({n_bytes / rec['ms'] / 1e6:.0f} "
+                      f"GB/s over {passes} passes), bound "
+                      f"{rec['bound_ms']:.3f} ms, twin (torch's composition) "
+                      f"{rec['plain_ms']:.3f} ms (ratio "
+                      f"{rec['ms'] / rec['plain_ms']:.3f})", flush=True)
+            del a, r
+            torch.cuda.empty_cache()
+    print(f"[24] a net call's 20 ResBlock norms (tile batch of four 96^3 "
+          f"blocks): kernel {total['ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.3f}, twin {total['plain_ms']:.3f}; a "
+          f"96x512x512 stack's 16 net calls: kernel {16 * total['ms']:.2f} "
+          f"ms, twin {16 * total['plain_ms']:.2f}", flush=True)
+    # the record: dec0's second call, the largest
+    return {**records["dec0 conv2"], "net_call": total}
 
 
 def pool_nms(peak, threshold: float, radius):
@@ -5747,8 +5912,14 @@ def main(argv=None):
     if want(22):
         kernels["upsample_conv_cat"] = _timed("phase 22", phase_upconv)
     if want(23):
-        kernels["window_attention"], launches["window_attention"] = \
-            _timed("phase 23", phase_window_attention, sv.image)
+        kernels["window_attention"] = _timed("phase 23",
+                                             phase_window_attention)
+    if want(24):
+        kernels["instance_norm_lrelu"] = _timed("phase 24",
+                                                phase_instance_norm)
+    if want(23) or want(24):
+        launches.update(_timed("phase 23-24 main path", swin_main_path,
+                               sv.image))
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
     if want(12):

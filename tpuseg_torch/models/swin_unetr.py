@@ -23,8 +23,14 @@ with float32 parameters, as ``UNet3D`` is.
   each stage's merged output.
 * CNN: ``ResBlock(ci, co)`` = ``lrelu(IN(conv2(lrelu(IN(conv1(x))))) +
   r)`` (3x3x3 convs), ``r = IN(conv3(x))`` (1x1x1) where ci != co and
-  ``x`` otherwise (convs without bias, non-affine InstanceNorm eps 1e-5,
-  LeakyReLU 0.01);
+  ``x`` otherwise (convs without bias, non-affine InstanceNorm over each
+  (n, c) plane with the biased variance and eps 1e-5, LeakyReLU 0.01).
+  Each ``lrelu(IN(.) + r)`` is one call of
+  :func:`tpuseg_torch.ops.instnorm.instance_norm_lrelu`: on the card the N1
+  kernel pair, float32 statistics and the normalized, added and activated
+  value computed in float32 and rounded to the compute dtype once; on the
+  CPU its twin, ``torch.instance_norm``, the add and ``F.leaky_relu`` each
+  rounding on its own. Inference only: the wrapper refuses autograd.
   ``Up(ci, co)`` = ``ResBlock(2co, co)(cat[convT_k2s2(x), skip])``. Encoders
   on the input and on hidden outputs 0-2, a bottleneck on hidden output 4,
   five Ups (the first takes hidden output 3 as its skip) and a 1x1x1 head.
@@ -48,12 +54,11 @@ from torch import nn
 
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.models.blocks import Conv3d
+from tpuseg_torch.ops.instnorm import instance_norm_lrelu
 from tpuseg_torch.ops.window_attn import WINDOW, window_attention
 from tpuseg_torch.utils.profiling import mark
 
-IN_EPS = 1e-5
 LN_EPS = 1e-5
-SLOPE = 0.01
 PATCH = 2                       # the patch embedding's side
 _PARITIES = tuple(itertools.product((0, 1), repeat=3))
 
@@ -190,13 +195,6 @@ class SwinStage(nn.Module):
         return self.merge(x)
 
 
-def _instance_norm(x):
-    # the op itself: ``F.instance_norm`` refuses a single voxel a channel
-    # (a 32^3 block's bottleneck), which normalizes to 0
-    return torch.instance_norm(x, None, None, None, None, True, 0.0, IN_EPS,
-                               torch.backends.cudnn.enabled)
-
-
 class ResBlock(nn.Module):
     def __init__(self, ci: int, co: int):
         super().__init__()
@@ -205,10 +203,10 @@ class ResBlock(nn.Module):
         self.conv3 = Conv3d(ci, co, 1, bias=False) if ci != co else None
 
     def forward(self, x):
-        y = F.leaky_relu(_instance_norm(self.conv1(x)), SLOPE)
-        y = _instance_norm(self.conv2(y))
-        r = x if self.conv3 is None else _instance_norm(self.conv3(x))
-        return F.leaky_relu(y + r, SLOPE)
+        y = self.conv2(instance_norm_lrelu(self.conv1(x)))
+        if self.conv3 is None:
+            return instance_norm_lrelu(y, x)
+        return instance_norm_lrelu(y, self.conv3(x), norm_r=True)
 
 
 class Up(nn.Module):

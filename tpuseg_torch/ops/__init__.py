@@ -8,7 +8,8 @@ fused eval ConvBlock (K4, ``ops/convblock.py``), the decoder's
 upsample-and-conv with its skip concatenation (``ops/upconv.py``), the
 training path's 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies
 share the weight layout of ``ops/conv_mma.py``, and SwinUNETR's
-shifted-window attention (W1, ``ops/window_attn.py``)."""
+shifted-window attention (W1, ``ops/window_attn.py``) and its ResBlocks'
+InstanceNorm, add and LeakyReLU (N1, ``ops/instnorm.py``)."""
 
 from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
@@ -20,6 +21,8 @@ from tpuseg_torch.ops.components import (connected_components,
 from tpuseg_torch.ops.filter import (label_sizes, max_seed_count, size_filter,
                                      size_filter_and_compact)
 from tpuseg_torch.ops.hist import bin_counts, label_counts, percentiles
+from tpuseg_torch.ops.instnorm import (instance_norm_lrelu,
+                                       instance_norm_lrelu_plain)
 from tpuseg_torch.ops.merge import LAST_CALL_STATE as _MERGE_STATE
 from tpuseg_torch.ops.merge import (apply_merge_table, pair_aggregate,
                                     pair_slots, saddle_merge,
@@ -43,7 +46,7 @@ from tpuseg_torch.ops.window_attn import (window_attention,
 KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
                    label_counts, union_closure, pair_aggregate, pair_slots,
-                   upsample_conv_cat, window_attention)
+                   upsample_conv_cat, window_attention, instance_norm_lrelu)
 
 #: the state the wrappers keep about their last call, ``(holder,
 #: attribute)``, declared by each wrapper's module
@@ -56,7 +59,8 @@ __all__ = [
     "chase_resolve", "compact_relabel", "connected_components", "conv3x3",
     "conv3x3_plain", "conv3x3_raw", "flood_pass", "flood_resolve",
     "flood_truncation_count", "fold_bn_affine", "fused_convblock",
-    "fused_convblock_plain", "fused_peak_nms", "label_components",
+    "fused_convblock_plain", "fused_peak_nms", "instance_norm_lrelu",
+    "instance_norm_lrelu_plain", "label_components",
     "label_counts", "label_sizes", "labels_are_connected", "max_seed_count",
     "pair_aggregate", "pair_slots", "peak_nms", "percentiles",
     "radius3", "saddle_merge", "saddle_merge_edges", "saddle_merge_table",

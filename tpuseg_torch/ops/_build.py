@@ -66,6 +66,8 @@ SIGNATURES = {
                           _P, _P, _P, _P],
     "tpuseg_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _P],
+    "tpuseg_instnorm_stats": [_P, _P, _P, _L, _L, _I, _I, _P],
+    "tpuseg_instnorm_apply": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _F, _F, _P],
 }
 
 
