@@ -31,9 +31,9 @@ Phases, in order; any failure raises and exits non-zero:
    (32/64/128/256, head 32, bf16) under the default InferConfig; every
    kernel's launch counter must be above 0 after the run, K1's by the tile
    pass, and H1-H3 (normalization and size filter) too, with the chase's
-   and flood's passes run beside those enqueued (the loops' gates); then,
-   warm, the stage times and each stage's peak device memory,
-   and its post-processing through the twins on the same
+   and flood's passes run beside those enqueued (the loops' gates); then
+   its two eager stages, the post-processing once more with K1 on the
+   chain of whole-volume launches and through the twins on the same
    logits: labels equal elementwise; then K1-K3 against their twins on
    those seeded-weights probabilities (the main path's load: tens of chase
    passes, ten flood passes), with times per resolve;
@@ -52,9 +52,7 @@ Phases, in order; any failure raises and exits non-zero:
    64^3, ``train.apply_impl="fused"``, two synthetic volumes (one held out
    for validation with val-volume inference); K6 (its tensor-core body
    too) and K1-K3 launch counters above 0, finite losses, the checkpoint
-   written, and a ``--resume`` run that continues from it; then one warm
-   train step under the fused and the plain apply, in turns: wall time and
-   device time by kernel (``torch.profiler``);
+   written, and a ``--resume`` run that continues from it;
 8. the fused and the plain-module train step on one fixed batch: loss and
    every parameter gradient (f32 and bf16 bounds in the phase);
 9. bench.py's 200-step trained-weights recipe through
@@ -95,7 +93,7 @@ Phases, in order; any failure raises and exits non-zero:
     apply with peak threshold 0.35, both calibrated: K4 launched 3 x 2
     times on the tensor cores in the second, K1-K3 above 0 and convergence
     reported in both, F1@IoU0.5 within 0.02 of phase 9's calibrated figure;
-    wall time, Mvox/s, instances, F1 and peak device memory of each;
+    instances and F1 of each;
 14. (run after phase 9, with its checkpoint) the streamed path on a
     360x1024x1024 stack of 9000 nuclei (four z-chunks of 96, the last 72;
     (360, 512, 512) with 2250 nuclei on a host with under 32 GB free),
@@ -1197,10 +1195,11 @@ def phase_main_path(image: np.ndarray, tmp: str):
 
 
 def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
-    """The same main path, warm, timed per stage; then its post-processing
-    again through the plain twins on the same logits: labels must agree;
-    then K1-K3 against their twins on the probabilities of those logits.
-    Returns that comparison's record (``compare_kernels``)."""
+    """The same main path through its two eager stages; then its
+    post-processing again with K1 on the chain and through the plain twins
+    on the same logits: labels must agree; then K1-K3 against their twins
+    on the probabilities of those logits. Returns that comparison's record
+    (``compare_kernels``)."""
     from tpuseg_torch.ckpt import load_pth
     from tpuseg_torch.infer import make_infer_stages
     from tpuseg_torch.models import build_model
@@ -1210,29 +1209,8 @@ def phase_warm_stages(image: np.ndarray, ckpt: str, cfg):
     model.cuda()
     _, stage_net, stage_post = make_infer_stages(model, cfg)
     vol = torch.from_numpy(image).cuda()
-    stage_post(stage_net(vol))
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     logits = stage_net(vol)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    net_peak = torch.cuda.max_memory_allocated()
-    held_post = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     labels = stage_post(logits)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    post_peak = torch.cuda.max_memory_allocated()
-    vox = int(np.prod(MAIN_SHAPE))
-    print(f"[4] warm: net sweep {1e3 * (t1 - t0):.1f} ms, post {1e3 * (t2 - t1):.1f}"
-          f" ms, total {1e3 * (t2 - t0):.1f} ms ({vox / (t2 - t0) / 1e6:.2f} Mvox/s)")
-    print(f"[4] warm peak device memory by stage (model and volume held: "
-          f"{held / 1e6:.1f} MB): net sweep {net_peak / 1e6:.1f} MB; "
-          f"post-processing {post_peak / 1e6:.1f} MB, of which "
-          f"{(post_peak - held_post) / 1e6:.1f} MB its own (the logits and "
-          f"what was held before it: {held_post / 1e6:.1f} MB)")
     for k, v in logits.items():
         if v.shape != MAIN_SHAPE or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{k}: shape {tuple(v.shape)} or non-finite")
@@ -1370,52 +1348,7 @@ def phase_train_main_path(tmp: str):
     if launches_mma == 0:
         raise AssertionError("train main path never launched K6's "
                              "tensor-core body")
-    phase_train_step_times()
     return launches
-
-
-def phase_train_step_times():
-    """One warm train step (full default U-Net, batch 8 of 64^3, bf16) under
-    the fused and the plain-module apply, in turns on one fixed batch: wall
-    ms ending in a synchronize, then each step's device time by kernel.
-    The two calls before the timed ones run eagerly and capture, so the
-    timed steps are replays (phase 21 times them against the eager body)."""
-    from tpuseg_torch.core import Config
-    from tpuseg_torch.data import PatchSampler, synthesize_volume
-    from tpuseg_torch.models import build_model
-    from tpuseg_torch.train.step import create_train_state, make_train_step
-
-    vol = synthesize_volume(shape=(64, 128, 128), num_instances=16, seed=0)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in PatchSampler(
-        [vol], batch_size=TRAIN_SHAPE[0]).next_batch().items()}
-    steps = {}
-    for tag, impl in (("fused", "fused"), ("plain", "flax")):
-        cfg = Config().override(**{"train.apply_impl": impl})
-        model = build_model(cfg.model, seed=SEED).cuda().train()
-        state = create_train_state(model, cfg)
-        step_fn = make_train_step(model, cfg)
-        steps[tag] = lambda state=state, step_fn=step_fn: step_fn(
-            state, batch, SEED + 1)
-        for _ in range(2):
-            steps[tag]()
-    times = {"fused": [], "plain": []}
-    # the first turn of each is a warm-up of the alternation itself (the
-    # allocator's cache is shared by the two models) and is not kept
-    for turn, tag in enumerate(("plain", "fused", "plain", "fused", "fused",
-                                "plain")):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            steps[tag]()
-        torch.cuda.synchronize()
-        if turn >= 2:
-            times[tag].append(1e3 * (time.perf_counter() - t0) / 5)
-    print(f"[7] warm train step (replayed), mean of 5, two turns each: "
-          f"fused apply "
-          f"{' / '.join(f'{t:.1f}' for t in times['fused'])} ms, plain "
-          f"apply {' / '.join(f'{t:.1f}' for t in times['plain'])} ms")
-    for tag in ("fused", "plain"):
-        profile_device_time(f"one warm {tag} train step", steps[tag], phase=7)
 
 
 def phase_fused_vs_plain():
@@ -1573,7 +1506,6 @@ def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
          "threshold 0.35", 2,
          ["infer.tile=[96,256,512]", "infer.halo=[0,8,0]",
           'infer.apply_impl="fused"', "postproc.peak_threshold=0.35"]))
-    vox = int(np.prod(MAIN_SHAPE))
     for tag, n_tiles, sets in configs:
         out_path = os.path.join(tmp, f"labels_bench_{tag[0]}.npy")
         argv = ["--checkpoint", ckpt_dir, "--input", vol_path, "--output",
@@ -1581,21 +1513,14 @@ def phase_bench_configs(sv, ckpt_dir: str, vol_path: str, ann_path: str,
         for kv in sets:
             argv += ["--set", kv]
         _reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         status = cli_infer.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         launches, mma = _launches(), _mma_launches()["fused_convblock"]
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         labels = np.load(out_path)
         m = f1_iou50_on_card(labels, sv.labels)
         print(f"[13] cli.infer, trained checkpoint, config {tag}: status "
               f"{status} ({'flood truncated' if status == 4 else 'converged'}"
-              f"), wall {wall:.3f} s incl. load and save "
-              f"({vox / wall / 1e6:.2f} Mvox/s), {m['n_pred']} instances vs "
-              f"{m['n_gt']} GT, F1@IoU0.5 {m['f1']:.4f} (phase 9 calibrated: "
-              f"{f1_floor:.4f}), peak device memory {peak_gb:.2f} GB; kernel "
+              f"), {m['n_pred']} instances vs {m['n_gt']} GT, F1@IoU0.5 "
+              f"{m['f1']:.4f} (phase 9 calibrated: {f1_floor:.4f}); kernel "
               f"launches {launches}, {mma} of K4's by the tensor-core kernel")
         if status not in (0, 4):
             raise AssertionError(f"cli.infer (config {tag[0]}) returned "
@@ -1787,13 +1712,14 @@ class PassTally:
 
 class ChunkPasses:
     """Chase and flood passes per chunk of a stream: the streaming module's
-    watershed is wrapped for the time of the ``with``, and each call's K2
-    and K3 passes that ran are kept (``PassTally``)."""
+    ``watershed_labels`` is wrapped for the time of the ``with``, and each
+    call's K2 and K3 passes that ran are kept (``PassTally``)."""
 
     def __enter__(self):
         from tpuseg_torch.infer import streaming
 
-        self.module, self.orig, self.passes = streaming, streaming.watershed, []
+        self.module, self.orig, self.passes = (
+            streaming, streaming.watershed_labels, [])
 
         def counted(*args, **kwargs):
             with PassTally() as tally:
@@ -1801,17 +1727,18 @@ class ChunkPasses:
             self.passes.append(tally.passes())
             return out
 
-        streaming.watershed = counted
+        streaming.watershed_labels = counted
         return self.passes
 
     def __exit__(self, *exc):
-        self.module.watershed = self.orig
+        self.module.watershed_labels = self.orig
 
 
 class ChunkTwinCheck:
     """Every chunk of a stream held against the twins at the chunk's own
-    shape: the streaming module's watershed is wrapped for the time of the
-    ``with``; each call runs once more with ``plain=True`` on the same maps
+    shape: the streaming module's ``watershed_labels`` is wrapped for the
+    time of the ``with``; each call runs once more with ``plain=True`` on
+    the same maps
     (K1-K3, or K5 under ``nms_impl="pallas"``, against their twins) and
     must give equal labels, and K5 is held against its twin on the chunk's
     peak map at the call's threshold and radius. Keeps each checked
@@ -1821,12 +1748,13 @@ class ChunkTwinCheck:
         from tpuseg_torch.infer import streaming
         from tpuseg_torch.ops.nms import fused_peak_nms, fused_peak_nms_plain
 
-        self.module, self.orig, self.checked = streaming, streaming.watershed, []
+        self.module, self.orig, self.checked = (
+            streaming, streaming.watershed_labels, [])
 
-        def checked(fg, pk, **kw):
-            got = self.orig(fg, pk, **kw)
-            want = self.orig(fg, pk, **kw, plain=True)
-            thr, radius = kw["peak_threshold"], kw["peak_radius"]
+        def checked(fg, pk, pp, fg_threshold):
+            got = self.orig(fg, pk, pp, fg_threshold)
+            want = self.orig(fg, pk, pp, fg_threshold, plain=True)
+            thr, radius = pp.peak_threshold, pp.nms_radius
             seeds = fused_peak_nms(pk, thr, radius)
             seeds_plain = fused_peak_nms_plain(pk, thr, radius)
             torch.cuda.synchronize()
@@ -1841,11 +1769,11 @@ class ChunkTwinCheck:
             del want, seeds, seeds_plain
             return got
 
-        streaming.watershed = checked
+        streaming.watershed_labels = checked
         return self.checked
 
     def __exit__(self, *exc):
-        self.module.watershed = self.orig
+        self.module.watershed_labels = self.orig
 
 
 def split_labels(labels: np.ndarray, one_shot: np.ndarray, seams,

@@ -69,12 +69,11 @@ extern "C" int tpuseg_smem_optin() {
 // seeds (one byte per voxel, 0/1) of the contiguous float32 (D, H, W) map
 // `peak` by the tile pass; every radius <= tpuseg_nms_tile_max_radius().
 // *thr: the threshold, in device memory (the host never reads it).
-// `zchunks`: 0, or the number of z chunks (for tuning).
 extern "C" int tpuseg_peak_nms(const float* peak, const float* thr, int rz,
-                               int ry, int rx, int zchunks, int D, int H,
-                               int W, unsigned char* seeds, void* stream) {
-  return launch_nms_tile<false>(peak, nullptr, thr, rz, ry, rx, zchunks, D, H,
-                                W, seeds, nullptr, nullptr,
+                               int ry, int rx, int D, int H, int W,
+                               unsigned char* seeds, void* stream) {
+  return launch_nms_tile<false>(peak, nullptr, thr, rz, ry, rx, D, H, W,
+                                seeds, nullptr, nullptr,
                                 static_cast<cudaStream_t>(stream));
 }
 

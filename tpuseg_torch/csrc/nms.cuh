@@ -586,8 +586,8 @@ nms_tile_kernel(const float* __restrict__ peak, const float* __restrict__ fgp,
 
 template <int RZ, int RMAX, int NT, bool DIRS>
 cudaError_t launch_nms_tile_rz(const float* peak, const float* fgp,
-                               const float* thrs, int ry, int rx, int zchunks,
-                               int D, int H, int W, unsigned char* seeds,
+                               const float* thrs, int ry, int rx, int D,
+                               int H, int W, unsigned char* seeds,
                                int* dirs, int* v0, cudaStream_t stream) {
   auto kernel = nms_tile_kernel<RZ, RMAX, NT, DIRS>;
   static bool opted_in = false;
@@ -599,11 +599,9 @@ cudaError_t launch_nms_tile_rz(const float* peak, const float* fgp,
     opted_in = true;
   }
   const int ty = (H + kTileY - 1) / kTileY, tx = (W + kTileX - 1) / kTileX;
-  int nz = zchunks;
-  if (nz <= 0)
-    nz = min((kTileBlocksWanted + ty * tx - 1) / (ty * tx),
-             D / kTileMinChunk);
-  nz = max(min(nz, D), 1);
+  const int nz = max(min((kTileBlocksWanted + ty * tx - 1) / (ty * tx),
+                         D / kTileMinChunk),
+                     1);
   const int zchunk = (D + nz - 1) / nz;
   const dim3 grid(tx, ty, (D + zchunk - 1) / zchunk);
   const auto addr = [](const void* ptr) {
@@ -621,19 +619,16 @@ cudaError_t launch_nms_tile_rz(const float* peak, const float* fgp,
 // dirs, v0 unused) or dirs and v0 (DIRS true; seeds unused). thrs: device
 // memory holding the peak threshold and (DIRS) the foreground threshold.
 // Radii above kTileMaxR are refused: the wrappers send those to the chain.
-// `zchunks`: the number of z chunks, 0 for the rule above.
 template <bool DIRS>
 cudaError_t launch_nms_tile(const float* peak, const float* fgp,
-                            const float* thrs, int rz, int ry, int rx,
-                            int zchunks, int D, int H, int W,
-                            unsigned char* seeds, int* dirs, int* v0,
-                            cudaStream_t s) {
+                            const float* thrs, int rz, int ry, int rx, int D,
+                            int H, int W, unsigned char* seeds, int* dirs,
+                            int* v0, cudaStream_t s) {
   if (min(rz, min(ry, rx)) < 0 || max(rz, max(ry, rx)) > kTileMaxR)
     return cudaErrorInvalidValue;
 #define TPUSEG_TILE(RZ, RMAX, NT)                                            \
-  return launch_nms_tile_rz<RZ, RMAX, NT, DIRS>(peak, fgp, thrs, ry, rx,    \
-                                                zchunks, D, H, W, seeds,     \
-                                                dirs, v0, s)
+  return launch_nms_tile_rz<RZ, RMAX, NT, DIRS>(peak, fgp, thrs, ry, rx, D, \
+                                                H, W, seeds, dirs, v0, s)
   if (max(rz, max(ry, rx)) <= kTileSmallR) {
     // window at most 40 x 40: 400 quads
     switch (rz) {

@@ -69,15 +69,14 @@ using namespace tpuseg;
 // <= tpuseg_nms_tile_max_radius(). thrs: the peak and the foreground
 // threshold, two floats in device memory (the host never reads them; the
 // reference's traced scalars). v0 is volume-sized scratch, the result v
-// lands in v_out. `zchunks`: 0, or the number of z chunks (for tuning).
+// lands in v_out.
 extern "C" int tpuseg_seed_chase(const float* peak, const float* fgp,
                                  const float* thrs, int rz, int ry, int rx,
-                                 int h0, int zchunks, int D, int H, int W,
-                                 int* v0, int* dirs, int* v_out,
-                                 void* stream) {
+                                 int h0, int D, int H, int W, int* v0,
+                                 int* dirs, int* v_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = launch_nms_tile<true>(
-      peak, fgp, thrs, rz, ry, rx, zchunks, D, H, W, nullptr, dirs, v0, s);
+      peak, fgp, thrs, rz, ry, rx, D, H, W, nullptr, dirs, v0, s);
   if (err != cudaSuccess) return err;
   return run_chase(v0, dirs, v_out, nullptr, nullptr, h0, D, H, W, s);
 }

@@ -66,6 +66,47 @@ from tpuseg_torch.ops.watershed import (flood_truncation_count,
 from tpuseg_torch.utils.profiling import mark
 
 
+def norm_scalars(lo, hi):
+    """``(lo, span)`` of the percentile scalars ``lo`` and ``hi`` (0-d
+    tensors), for :func:`block_logits`: ``span = max(hi - lo, 1e-6)``."""
+    return lo, torch.clamp(hi - lo, min=1e-6)
+
+
+def block_logits(apply_fn, block: torch.Tensor, norm, cfg: Config, halo):
+    """``tiled_forward``'s ``{"fg_logits", "peak_logits"}`` of a (D, H, W)
+    block (read as float32) under ``apply_fn``, with ``cfg.infer``'s tile,
+    tile batch and compute dtype and the given ``halo``. ``norm``: the
+    :func:`norm_scalars` ``(lo, span)``, each tile block then normalized to
+    ``clamp((b - lo) / span, 0, 1)`` (elementwise, so equal to normalizing
+    the block first), or ``None`` for no normalization. Every inference
+    body sweeps its blocks through this."""
+    preprocess = None
+    if norm is not None:
+        lo, span = norm
+
+        def preprocess(b):
+            return torch.clamp((b - lo) / span, 0.0, 1.0)
+
+    return tiled_forward(apply_fn, block.float(), tile=cfg.infer.tile,
+                         halo=halo, tile_batch=cfg.infer.tile_batch,
+                         compute_dtype=resolve(cfg.infer.compute_dtype),
+                         preprocess=preprocess)
+
+
+def watershed_labels(fg, pk, pp, fg_threshold, plain: bool = False):
+    """The watershed of the maps ``fg`` and ``pk`` under ``pp`` (a
+    ``PostprocConfig``) at ``fg_threshold`` (a float, or a 0-d tensor that
+    compares in float32, ``ops.watershed.threshold_mask``): int32 labels,
+    each basin its root's linear index + 1. Every inference body labels
+    through this."""
+    return watershed(fg, pk, peak_threshold=pp.peak_threshold,
+                     fg_threshold=fg_threshold, peak_radius=pp.nms_radius,
+                     flood_iters=pp.flood_iters, method=pp.method,
+                     ascent_rounds=pp.ascent_rounds, nms_impl=pp.nms_impl,
+                     resolve_impl=pp.resolve_impl, label_space="index",
+                     plain=plain)
+
+
 def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
                  plain: bool):
     pp = cfg.postproc
@@ -76,13 +117,7 @@ def _postprocess(fg_prob, peak_prob, cfg: Config, want_diag: bool,
         fg_threshold = threshold_for_fraction(
             fg_prob, pp.fg_target_fraction,
             sample_stride=cfg.data.normalize_sample_stride, plain=plain)
-    labels = watershed(fg_prob, peak_prob, peak_threshold=pp.peak_threshold,
-                       fg_threshold=fg_threshold,
-                       peak_radius=pp.nms_radius, flood_iters=pp.flood_iters,
-                       method=pp.method, ascent_rounds=pp.ascent_rounds,
-                       nms_impl=pp.nms_impl,
-                       resolve_impl=pp.resolve_impl, label_space="index",
-                       plain=plain)
+    labels = watershed_labels(fg_prob, peak_prob, pp, fg_threshold, plain)
     diag = None
     if want_diag:
         # measured on the raw watershed output, before filtering; a 0-d
@@ -129,7 +164,6 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
     apply_fn = make_apply_fn(model, cfg, plain)
     if cfg.infer.program not in ("fused", "staged"):
         raise ValueError(f"unknown InferConfig.program {cfg.infer.program!r}")
-    compute_dtype = resolve(cfg.infer.compute_dtype)
 
     # receptive field of the model actually supplied (stand-ins carry no
     # .config and trip no warning)
@@ -161,21 +195,12 @@ def make_infer_stages(model, cfg: Config, normalize: bool = True,
         _check_per_axis_halo(volume.shape)
         mark("norm", volume)
         vol = volume.float()
-        preprocess = None
-        if normalize:
-            # scalars only; the normalization runs per tile block
-            p_lo, p_hi = histogram_percentile_scalars(
-                vol, cfg.data.normalize_pcts,
-                sample_stride=cfg.data.normalize_sample_stride)
-            span = torch.clamp(p_hi - p_lo, min=1e-6)
-
-            def preprocess(b):
-                return torch.clamp((b - p_lo) / span, 0.0, 1.0)
-
-        return tiled_forward(apply_fn, vol, tile=cfg.infer.tile, halo=halo,
-                             tile_batch=cfg.infer.tile_batch,
-                             compute_dtype=compute_dtype,
-                             preprocess=preprocess)
+        # scalars only; the normalization runs per tile block
+        norm = (norm_scalars(*histogram_percentile_scalars(
+            vol, cfg.data.normalize_pcts,
+            sample_stride=cfg.data.normalize_sample_stride))
+            if normalize else None)
+        return block_logits(apply_fn, vol, norm, cfg, halo)
 
     @torch.inference_mode()
     def stage_post(out):

@@ -72,16 +72,15 @@ import numpy as np
 import torch
 
 from tpuseg_torch.core import Config
-from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.data.normalize import bin_counts, percentiles_from_counts
 from tpuseg_torch.infer.graph import (CapturedProgram, CudaGraphs,
                                       eager_reason, module_state)
-from tpuseg_torch.infer.pipeline import make_apply_fn
-from tpuseg_torch.infer.tiles import tiled_forward
-from tpuseg_torch.ops.calibrate import fg_bin_counts, threshold_from_counts
+from tpuseg_torch.infer.pipeline import (block_logits, make_apply_fn,
+                                         norm_scalars, watershed_labels)
+from tpuseg_torch.ops.calibrate import (sampled_fg_counts,
+                                        threshold_from_counts)
 from tpuseg_torch.ops.merge import (SENT, report_dropped,
                                     saddle_merge_core_edges)
-from tpuseg_torch.ops.watershed import watershed
 from tpuseg_torch.parallel.collectives import (all_gather, pmax, pmin,
                                                ppermute, psum)
 from tpuseg_torch.parallel.halo import exchange_mesh_halo
@@ -199,7 +198,6 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         raise ValueError(f"{mesh.size} shards x shard_max_labels {cap} "
                          "exceed the int32 packed ids")
     halo = cfg.infer.shard_halo
-    compute_dtype = resolve(cfg.infer.compute_dtype)
     pp = cfg.postproc
     local = mesh.local_ranks()
     models = replicas(model, [mesh.devices[r] for r in local])
@@ -225,26 +223,20 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         # 1: halo exchange (y, then z) + global normalization scalars
         slabs = [s.float() for s in shards]
         ext = dict(zip(local, exchange_mesh_halo(slabs, halo, mesh)))
-        preprocess = dict.fromkeys(local)
+        norms = dict.fromkeys(local)
         if normalize:
             p_lo, p_hi = global_histogram_percentile(
                 slabs, cfg.data.normalize_pcts,
                 sample_stride=cfg.data.normalize_sample_stride,
                 n_shards=mesh.size)
             for r, s in zip(local, slabs):
-                lo = p_lo.to(s.device)
-                span = torch.clamp(p_hi.to(s.device) - lo, min=1e-6)
-                preprocess[r] = (lambda b, lo=lo, span=span:
-                                 torch.clamp((b - lo) / span, 0.0, 1.0))
+                norms[r] = norm_scalars(p_lo.to(s.device), p_hi.to(s.device))
         del slabs
 
         def sweep(r):
             """2-3: the sweep + sigmoid of shard ``r``, fake halo zeroed."""
-            out = tiled_forward(apply_fns[ext[r].device], ext[r],
-                                tile=cfg.infer.tile, halo=cfg.infer.halo,
-                                tile_batch=cfg.infer.tile_batch,
-                                compute_dtype=compute_dtype,
-                                preprocess=preprocess[r])
+            out = block_logits(apply_fns[ext[r].device], ext[r], norms[r],
+                               cfg, cfg.infer.halo)
             ext[r] = None
             f = torch.sigmoid(out["fg_logits"])
             p = torch.sigmoid(out["peak_logits"])
@@ -266,14 +258,7 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
             entries' root coordinates and core counts, and its grown core
             in packed ids; to merge, also each entry's root peak and the
             grown core's peaks."""
-            lab = watershed(f, p, peak_threshold=pp.peak_threshold,
-                            fg_threshold=fg_threshold,
-                            peak_radius=pp.nms_radius,
-                            flood_iters=pp.flood_iters, method=pp.method,
-                            ascent_rounds=pp.ascent_rounds,
-                            nms_impl=pp.nms_impl,
-                            resolve_impl=pp.resolve_impl,
-                            label_space="index", plain=plain)
+            lab = watershed_labels(f, p, pp, fg_threshold, plain)
             del f
             grown = _core(lab, halo, grow)
             planes = [_core(grown.select(d, n), 0, sizes[:d] + sizes[d + 1:])
@@ -298,17 +283,16 @@ def make_sharded_infer_fn(model, cfg: Config, mesh: Mesh,
         # cores' summed histograms)
         if pp.fg_target_fraction > 0:
             probs = {r: sweep(r) for r in local}
-            stride = cfg.data.normalize_sample_stride
             hists = []
             for f, _ in probs.values():
-                core = _core(f, halo, sizes)
-                if stride > 1:
-                    core = core[..., ::stride]
-                hists.append(fg_bin_counts(core))
-            n = core.numel() * mesh.size          # the cores' one shape
+                h, n = sampled_fg_counts(_core(f, halo, sizes),
+                                         cfg.data.normalize_sample_stride)
+                hists.append(h)
             # a 0-d float32 tensor, as the reference's traced threshold:
-            # a bf16 map compares with it in float32 (ops.watershed)
-            thr = threshold_from_counts(psum(hists), n, pp.fg_target_fraction)
+            # a bf16 map compares with it in float32 (ops.watershed); the
+            # cores have one shape
+            thr = threshold_from_counts(psum(hists), n * mesh.size,
+                                        pp.fg_target_fraction)
             parts = {}
             for r in local:
                 f, p = probs.pop(r)

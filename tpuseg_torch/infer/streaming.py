@@ -53,15 +53,15 @@ import numpy as np
 import torch
 
 from tpuseg_torch.core import Config
-from tpuseg_torch.core.dtypes import resolve
-from tpuseg_torch.infer.pipeline import make_apply_fn
-from tpuseg_torch.infer.tiles import tiled_forward
-from tpuseg_torch.ops.calibrate import fg_bin_counts
+from tpuseg_torch.infer.pipeline import (block_logits, make_apply_fn,
+                                         norm_scalars, watershed_labels)
+from tpuseg_torch.ops.calibrate import (sampled_fg_counts,
+                                        threshold_from_counts)
 from tpuseg_torch.ops.components import rename, union_closure
 from tpuseg_torch.ops.merge import (SENT, report_dropped,
                                     saddle_merge_core_edges,
                                     saddle_merge_edges)
-from tpuseg_torch.ops.watershed import flood_truncation_count, watershed
+from tpuseg_torch.ops.watershed import flood_truncation_count, threshold_mask
 from tpuseg_torch.parallel.collectives import (all_gather, pmax, pmin,
                                                ppermute, psum)
 from tpuseg_torch.parallel.halo import exchange_halo
@@ -110,27 +110,12 @@ def _chunk_probs(apply_fn, ext, lo, hi, mask_top, mask_bot, cfg: Config):
     normalization runs per tile block, equal elementwise to normalizing
     first) -> (fg, peak) float32 probabilities with the fake z planes
     zeroed."""
-    span = torch.clamp(hi - lo, min=1e-6)
-
-    def preprocess(b):
-        return torch.clamp((b - lo) / span, 0.0, 1.0)
-
-    out = tiled_forward(apply_fn, ext.float(), tile=cfg.infer.tile,
-                        halo=cfg.infer.halo, tile_batch=cfg.infer.tile_batch,
-                        compute_dtype=resolve(cfg.infer.compute_dtype),
-                        preprocess=preprocess)
+    out = block_logits(apply_fn, ext, norm_scalars(lo, hi), cfg,
+                       cfg.infer.halo)
     fg = torch.sigmoid(out["fg_logits"].float())
     pk = torch.sigmoid(out["peak_logits"].float())
     return _mask_fake(fg, mask_top, mask_bot), _mask_fake(pk, mask_top,
                                                           mask_bot)
-
-
-def _fg_core_counts(fg, cfg: Config, bins: int) -> torch.Tensor:
-    """int64 histogram of a core's fg probabilities over every
-    ``normalize_sample_stride``-th x voxel (the voxels the one-shot
-    calibration sees: cores partition the volume)."""
-    stride = cfg.data.normalize_sample_stride
-    return fg_bin_counts(fg[..., ::stride] if stride > 1 else fg, bins)
 
 
 def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
@@ -144,22 +129,19 @@ def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
         return _chunk_probs(apply_fn, ext, lo, hi, mask_top, mask_bot, cfg)
 
     def fg_hist_fn(ext, lo, hi, mask_top, mask_bot):
-        """The core's fg histogram. Fake planes inside a short last chunk's
-        core land in bin 0; the caller subtracts them."""
+        """``(counts, n)``: the core's fg histogram and its sample count.
+        Fake planes inside a short last chunk's core land in bin 0; the
+        caller subtracts them."""
         fg, _ = chunk_net_fn(ext, lo, hi, mask_top, mask_bot)
-        return _fg_core_counts(fg[halo:halo + chunk_z], cfg, calib_bins)
+        return sampled_fg_counts(fg[halo:halo + chunk_z],
+                                 cfg.data.normalize_sample_stride, calib_bins)
 
     def chunk_post_fn(fg, pk, fg_thr, cz):
         """Watershed of the extended chunk, cropped on the device: int32
         local labels of the ``cz`` real core planes, the overlap plane, the
         passing saddle-merge edges, the flood-truncation count over the
         extended window, and the core's label ids and voxel counts."""
-        labels = watershed(fg, pk, peak_threshold=pp.peak_threshold,
-                           fg_threshold=fg_thr, peak_radius=pp.nms_radius,
-                           flood_iters=pp.flood_iters, method=pp.method,
-                           ascent_rounds=pp.ascent_rounds,
-                           nms_impl=pp.nms_impl, resolve_impl=pp.resolve_impl,
-                           label_space="index")
+        labels = watershed_labels(fg, pk, pp, fg_thr)
         if pp.merge_saddle_ratio > 0:
             # only the passing edges leave the device: the host union-find
             # that joins chunk-boundary ids applies them
@@ -170,7 +152,8 @@ def _make_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
         else:
             me_lo = me_hi = torch.zeros(0, dtype=torch.int32)
         # an upper bound over overlapping windows; zero stays exact
-        n_trunc = int(flood_truncation_count(labels, fg >= fg_thr))
+        n_trunc = int(flood_truncation_count(labels,
+                                             threshold_mask(fg, fg_thr)))
         return _crop_chunk(labels, halo, chunk_z, cz) + (me_lo, me_hi,
                                                          n_trunc)
 
@@ -259,9 +242,11 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
     def fg_hist_fn(ext, lo, hi, mask_top, mask_bot):
         fg, _ = chunk_net_fn(ext, lo, hi, mask_top, mask_bot)
         hl = ext.shape[1] // len(local)
-        return psum([_fg_core_counts(fg[i][halo:halo + chunk_z,
-                                           halo_y:halo_y + hl], cfg,
-                                     calib_bins) for i in local])
+        parts = [sampled_fg_counts(
+            fg[i][halo:halo + chunk_z, halo_y:halo_y + hl],
+            cfg.data.normalize_sample_stride, calib_bins) for i in local]
+        # every y-shard's core is the same size
+        return psum([h for h, _ in parts]), parts[0][1] * mesh.size
 
     def chunk_post_fn(fg, pk, fg_thr, cz):
         ez, hly, W = fg[local[0]].shape
@@ -273,13 +258,9 @@ def _make_sharded_chunk_fns(model, cfg: Config, halo: int, chunk_z: int,
         grown_pk, tables, peaks, n_distinct = [], [], [], []
         n_trunc = 0
         for i in local:
-            lab = watershed(fg[i], pk[i], peak_threshold=pp.peak_threshold,
-                            fg_threshold=fg_thr, peak_radius=pp.nms_radius,
-                            flood_iters=pp.flood_iters, method=pp.method,
-                            ascent_rounds=pp.ascent_rounds,
-                            nms_impl=pp.nms_impl,
-                            resolve_impl=pp.resolve_impl, label_space="index")
-            n_trunc += int(flood_truncation_count(lab, fg[i] >= fg_thr))
+            lab = watershed_labels(fg[i], pk[i], pp, fg_thr)
+            n_trunc += int(flood_truncation_count(
+                lab, threshold_mask(fg[i], fg_thr)))
             fg[i] = None
             # the full extended z range (the chunk's crops come after): the
             # core rows and the overlap row, the next shard's first
@@ -576,28 +557,23 @@ def stream_infer(
         if resume_meta is not None:
             fg_thr = resume_meta["fg_thr"]
         elif cfg.postproc.fg_target_fraction > 0:
-            stride = cfg.data.normalize_sample_stride
-            sample_plane = H * len(range(0, W, max(stride, 1)))
             fg_hist = np.zeros(bins, np.int64)
             n_core = 0
             staged = upload(0)
             for ci, (z0, z1) in enumerate(chunks):
                 ext, mt, mb = upload.ready(staged)
-                h = fg_hist_fn(ext, lo_t, hi_t, mt, mb)
+                h, n = fg_hist_fn(ext, lo_t, hi_t, mt, mb)
                 if ci + 1 < len(chunks):
                     staged = upload(ci + 1)
                 h = h.cpu().numpy().astype(np.int64)
                 # fake planes inside a short last chunk's core: prob 0.0
-                fake_core = max(0, (z0 + chunk_z) - D) * sample_plane
+                fake_core = max(0, (z0 + chunk_z) - D) * (n // chunk_z)
                 h[0] -= fake_core
                 fg_hist += h
-                n_core += chunk_z * sample_plane - fake_core
-            assert n_core == D * sample_plane
-            # ops.calibrate.threshold_for_fraction's float32 arithmetic
-            tail = (np.cumsum(fg_hist[::-1])[::-1].astype(np.float32)
-                    / np.float32(n_core))
-            b = int(np.sum(tail >= np.float32(cfg.postproc.fg_target_fraction)))
-            fg_thr = float(np.clip((b - 0.5) / bins, 0.0, 1.0))
+                n_core += n - fake_core
+            fg_thr = float(threshold_from_counts(
+                torch.from_numpy(fg_hist), n_core,
+                cfg.postproc.fg_target_fraction))
         else:
             fg_thr = cfg.postproc.fg_threshold
     if stats is not None:

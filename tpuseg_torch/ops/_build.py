@@ -33,7 +33,7 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu's entry points; every pointer and the stream are
 # void* so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "tpuseg_seed_chase": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "tpuseg_seed_chase": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P],
     "tpuseg_seed_chase_chain": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P, _P],
@@ -48,7 +48,7 @@ SIGNATURES = {
                          _P],
     "tpuseg_convblock_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P],
-    "tpuseg_peak_nms": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tpuseg_peak_nms": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tpuseg_peak_nms_chain": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P],
     "tpuseg_nms_tile_max_radius": [],

@@ -28,21 +28,24 @@ def threshold_for_fraction(prob: torch.Tensor, fraction: float,
     a ``bins``-bin histogram of every ``sample_stride``-th x-voxel: the
     JAX version's arithmetic (exact integer counts, float32 fractions).
     ``plain=True`` takes the histogram with H1's twin on any device."""
-    prob = prob.float()
+    hist, n = sampled_fg_counts(prob.float(), sample_stride, bins, plain)
+    return threshold_from_counts(hist, n, fraction)
+
+
+def sampled_fg_counts(prob: torch.Tensor, sample_stride: int = 1,
+                      bins: int = 4096, plain: bool = False):
+    """``(counts, n)``: the int64 ``bins``-bin histogram of every
+    ``sample_stride``-th x voxel of the probabilities ``prob`` (in [0, 1]),
+    the voxels the calibration sees, and their number: H1 under its
+    calibration rule on the card (``ops/hist.py``), its twin with
+    ``plain=True``. x is never split, so the cores of shards or chunks
+    sample the whole map's voxels and their summed counts are the whole
+    map's."""
     if sample_stride > 1:
         prob = prob[..., ::sample_stride]
-    return threshold_from_counts(fg_bin_counts(prob, bins, plain),
-                                 prob.numel(), fraction)
-
-
-def fg_bin_counts(prob: torch.Tensor, bins: int = 4096,
-                  plain: bool = False) -> torch.Tensor:
-    """int64 ``bins``-bin histogram of probabilities in [0, 1] (H1 under
-    its calibration rule on the card, ``ops/hist.py``; its twin with
-    ``plain=True``)."""
     counts = bin_counts_plain if plain else bin_counts
-    return counts(prob.float().reshape(1, -1), bins=bins,
-                  rule="calibrate")[0]
+    return (counts(prob.float().reshape(1, -1), bins=bins,
+                   rule="calibrate")[0], prob.numel())
 
 
 def threshold_from_counts(hist: torch.Tensor, n: int,

@@ -30,13 +30,13 @@ fused_peak_nms_plain = peak_nms
 
 
 def fused_peak_nms(peak_prob: torch.Tensor, threshold, radius=2,
-                   body: str | None = None, zchunks: int = 0) -> torch.Tensor:
+                   body: str | None = None) -> torch.Tensor:
     """Boolean (D, H, W) seed mask of ``peak_prob`` (taken as float32).
     ``threshold``: a float or a 0-d tensor; the kernel reads it from device
     memory.
 
-    ``body`` and ``zchunks`` are hooks for the card's checks and timings
-    (see ``ops.seed.seed_chase_pass``); neither is reachable from a config."""
+    ``body`` is a hook for the card's checks and timings (see
+    ``ops.seed.seed_chase_pass``); it is not reachable from a config."""
     if peak_prob.device.type == "cpu":
         return fused_peak_nms_plain(peak_prob, threshold, radius)
     rz, ry, rx = radius3(radius)
@@ -53,7 +53,7 @@ def fused_peak_nms(peak_prob: torch.Tensor, threshold, radius=2,
     thr = _build.device_scalars(threshold, device=peak.device)
     if body == "tile":
         err = lib.tpuseg_peak_nms(
-            peak.data_ptr(), thr.data_ptr(), rz, ry, rx, zchunks, d, h, w,
+            peak.data_ptr(), thr.data_ptr(), rz, ry, rx, d, h, w,
             seeds.data_ptr(), _build.stream_ptr())
     else:
         f0, f1 = torch.empty_like(peak), torch.empty_like(peak)

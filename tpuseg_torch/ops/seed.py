@@ -50,8 +50,7 @@ def seed_chase_pass_plain(peak_prob, fg_prob, peak_threshold, fg_threshold,
 
 
 def seed_chase_pass(peak_prob, fg_prob, peak_threshold, fg_threshold,
-                    radius=(2, 2, 2), h0: int = 8, body: str | None = None,
-                    zchunks: int = 0):
+                    radius=(2, 2, 2), h0: int = 8, body: str | None = None):
     """``(dirs, v)``: int32 direction codes and chase payloads after ``h0``
     lockstep chase steps. Both maps are taken as float32 (the TPU kernel's
     cast point); the thresholds are float32 scalars, each a float or a 0-d
@@ -59,9 +58,8 @@ def seed_chase_pass(peak_prob, fg_prob, peak_threshold, fg_threshold,
     reference's traced scalars), so a threshold computed on the device is
     never read by the host.
 
-    ``body`` and ``zchunks`` are hooks for the card's checks and timings:
-    ``body="chain"`` runs the chain at a radius the rule gives to the tile
-    pass, ``zchunks`` fixes the tile pass's number of z chunks. Neither is
+    ``body`` is a hook for the card's checks and timings: ``body="chain"``
+    runs the chain at a radius the rule gives to the tile pass. It is not
     reachable from a config."""
     if peak_prob.device.type == "cpu":
         return seed_chase_pass_plain(peak_prob, fg_prob, peak_threshold,
@@ -88,7 +86,7 @@ def seed_chase_pass(peak_prob, fg_prob, peak_threshold, fg_threshold,
         v0 = ivol()
         err = lib.tpuseg_seed_chase(
             peak.data_ptr(), fgp.data_ptr(), thrs.data_ptr(), rz, ry, rx, h0,
-            zchunks, d, h, w, v0.data_ptr(), dirs.data_ptr(), v.data_ptr(),
+            d, h, w, v0.data_ptr(), dirs.data_ptr(), v.data_ptr(),
             _build.stream_ptr())
     else:
         f0, f1 = torch.empty_like(peak), torch.empty_like(peak)
