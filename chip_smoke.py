@@ -325,15 +325,36 @@ Phases, in order; any failure raises and exits non-zero:
     bitwise equal, each value within its one rounding of the float64 value,
     bf16's mean error no larger than the twin's; the kernel's ms beside its
     bound by bytes and the twin's, per call and for a net call.
-    After 23 or 24, the main path: SwinUNETR at its published widths
+25. (needs no checkpoint) SwinUNETR's ResBlock 3x3x3 convs
+    (``ops/rconv.rconv``, R1) against their twin (``F.conv3d`` in float32,
+    TF32 off, of the same bf16 operands, rounded once) at each of the 20
+    conv calls of a tile batch of four 96^3 blocks (1 -> 48 at 96^3 on the
+    CUDA-core body, 48 -> 48 ... 768 -> 768 at 96^3 down to 3^3 on the
+    tensor cores, split depth at 6^3 and 3^3) and at edge shapes (a ragged
+    box with 2-byte staging, batch 1, a ragged ci = 1 tile): one launch a
+    call, two calls bitwise equal, each value within one bf16 ulp of the
+    twin's plus float32's slack; the packing kernel bitwise equal to
+    ``pack_rconv_weights``; the kernel's ms (weights packed, as a call
+    does) beside its bound (the larger of operations and bytes), the
+    twin's and the module's call it replaces (the weight cast to bf16 and
+    ``F.conv3d`` on the NCDHW tensors: cuDNN with its layout transposes) as
+    ``library_ms``, device times from CUDA graph replays, per call and for
+    a net call; held: from 96^3 down to 24^3 the kernel below the library
+    call; on the small planes (12^3 and below) the shapes at or above it
+    are listed with their ratio.
+    Then dec0's 1x1x1 conv3 as a channel product (``torch.matmul``) beside
+    ``F.conv3d``, and a net call's 7 channel products timed beside the
+    module's 1x1x1 ``F.conv3d`` calls and summed with the 3x3x3 convs on
+    each route.
+    After 23, 24 or 25, the main path: SwinUNETR at its published widths
     (seeded weights, bf16) through ``make_infer_fn`` on the 96 x 512 x 512
     stack at the benchmark's tiles (64 blocks of 96^3, 16 net calls of 4),
     captured: a replayed call launches W1 8 times a net call, 128 in all,
-    and N1 40 times a net call (4 a ResBlock), 640 in all (the final
-    record's ``launches``).
+    N1 40 times a net call (4 a ResBlock), 640 in all, and R1 20 times a
+    net call, 320 in all (the final record's ``launches``).
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
-alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-24 bring
+alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-25 bring
 nothing). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
@@ -352,6 +373,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import tempfile
@@ -455,14 +477,18 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     # nor its ResBlocks' InstanceNorm, add and LeakyReLU
     "instance_norm_lrelu": ("tpuseg_torch/csrc/instnorm.cu",
                             "tpuseg_torch/models/swin_unetr.py"),
+    # nor their 3x3x3 convs
+    "rconv": ("tpuseg_torch/csrc/rconv.cu",
+              "tpuseg_torch/models/swin_unetr.py"),
 }
 # the saddle merge's pair-table kernels (ops/merge.py), launched once each
 # by every merge-on call, once each a shard by a sharded one
 PAIR_KERNELS = ("pair_aggregate", "pair_slots")
-# SwinUNETR's attention (ops/window_attn.py) and ResBlock norms
-# (ops/instnorm.py): launched by that net alone (phases 23, 24; the
+# SwinUNETR's attention (ops/window_attn.py), ResBlock norms
+# (ops/instnorm.py) and convs (ops/rconv.py): launched by that net alone
+# (phases 23-25; the
 # benchmark's infer-swin-stack600), never by the U-Net's legs
-SWIN_KERNELS = ("window_attention", "instance_norm_lrelu")
+SWIN_KERNELS = ("window_attention", "instance_norm_lrelu", "rconv")
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
 HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
@@ -598,6 +624,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls captured in
+    one CUDA graph and replayed, after an eager warm-up: the host's launch
+    costs left out, as on the captured main path."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
@@ -3796,13 +3847,14 @@ def phase_window_attention():
 
 
 #: the hand-written kernels a SwinUNETR net call launches: W1 twice a stage
-#: (its two Swin blocks), N1 twice a call of 10 ResBlocks' two
+#: (its two Swin blocks), N1 twice a call of 10 ResBlocks' two, R1 once a
+#: call of their two 3x3x3 convs
 SWIN_LAUNCHES_PER_NET_CALL = {"window_attention": 8,
-                              "instance_norm_lrelu": 40}
+                              "instance_norm_lrelu": 40, "rconv": 20}
 
 
 def swin_main_path(image: np.ndarray) -> dict:
-    """W1's and N1's launches in one replayed call of SwinUNETR (feature
+    """W1's, N1's and R1's launches in one replayed call of SwinUNETR (feature
     48, seeded weights, bf16) through ``make_infer_fn`` on ``image`` at the
     benchmark cell's tiles: (96, 64, 64) with halo (0, 16, 16), blocks of
     96^3, four a net call. Held: the call captured, and
@@ -3812,6 +3864,7 @@ def swin_main_path(image: np.ndarray) -> dict:
     from tpuseg_torch.infer.tiles import tile_grid
     from tpuseg_torch.models import build_swin_unetr
     from tpuseg_torch.ops.instnorm import instance_norm_lrelu
+    from tpuseg_torch.ops.rconv import rconv
     from tpuseg_torch.ops.window_attn import window_attention
 
     model = build_swin_unetr(seed=SEED).cuda()
@@ -3824,7 +3877,7 @@ def swin_main_path(image: np.ndarray) -> dict:
         infer(vol)
     torch.cuda.synchronize()
     wrappers = {"window_attention": window_attention,
-                "instance_norm_lrelu": instance_norm_lrelu}
+                "instance_norm_lrelu": instance_norm_lrelu, "rconv": rconv}
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -3836,13 +3889,14 @@ def swin_main_path(image: np.ndarray) -> dict:
     calls = -(-blocks // cfg.infer.tile_batch)
     want = {k: m * calls for k, m in SWIN_LAUNCHES_PER_NET_CALL.items()}
     if infer.mode != "captured" or n != want:
-        raise AssertionError(f"[23-24] main path: mode {infer.mode}, "
+        raise AssertionError(f"[23-25] main path: mode {infer.mode}, "
                              f"launches {n}, not {want} ({calls} net calls)")
-    print(f"[23-24] main path: SwinUNETR (feature 48, bf16) through "
+    print(f"[23-25] main path: SwinUNETR (feature 48, bf16) through "
           f"make_infer_fn on {tuple(vol.shape)}, {blocks} blocks of 96^3 in "
           f"{calls} net calls, captured: a replayed call launched "
-          f"window_attention {n['window_attention']} times and "
-          f"instance_norm_lrelu {n['instance_norm_lrelu']} times "
+          f"window_attention {n['window_attention']} times, "
+          f"instance_norm_lrelu {n['instance_norm_lrelu']} times and "
+          f"rconv {n['rconv']} times "
           f"({wall_ms:.1f} ms wall)", flush=True)
     infer.release()
     del infer, model, vol
@@ -3974,6 +4028,221 @@ def phase_instance_norm():
           f"ms, twin {16 * total['plain_ms']:.2f}", flush=True)
     # the record: dec0's second call, the largest
     return {**records["dec0 conv2"], "net_call": total}
+
+
+#: SwinUNETR's 20 ResBlock conv calls of a net call (a tile batch of four
+#: 96^3 blocks): (name, ci, co, side), conv1 then conv2 of each block
+RCONV_BLOCKS = (("enc0", 1, 48, 96), ("enc1", 48, 48, 48),
+                ("enc2", 96, 96, 24), ("enc3", 192, 192, 12),
+                ("bottleneck", 768, 768, 3), ("dec4", 768, 384, 6),
+                ("dec3", 384, 192, 12), ("dec2", 192, 96, 24),
+                ("dec1", 96, 48, 48), ("dec0", 96, 48, 96))
+#: R1's edges: (name, shape, co): a ragged box with 2-byte staging (W not a
+#: multiple of 8), a ragged box with vectors, batch 1, small ragged planes
+#: (boxes larger than the volume), the bottleneck at batch 1 (split depth),
+#: a ragged ci = 1 tile
+#: the channel products of a net call: (name, ci, co, side): the ResBlocks'
+#: conv3 where ci != co (enc0 and the five Ups) and the head (with bias)
+RCONV_PRODUCTS = (("enc0", 1, 48, 96), ("dec4", 768, 384, 6),
+                  ("dec3", 384, 192, 12), ("dec2", 192, 96, 24),
+                  ("dec1", 96, 48, 48), ("dec0", 96, 48, 96),
+                  ("head", 48, 2, 96))
+RCONV_EDGES = (("ragged, 2-byte staging", (2, 48, 13, 21, 50), 48),
+               ("ragged, vectors", (3, 32, 9, 11, 24), 96),
+               ("batch 1", (1, 96, 48, 48, 48), 48),
+               ("small ragged planes", (3, 32, 5, 7, 11), 192),
+               ("bottleneck, batch 1", (1, 768, 3, 3, 3), 768),
+               ("ci = 1 ragged", (2, 1, 7, 19, 45), 48))
+
+
+def _rconv_check(tag, x, w) -> dict:
+    """One R1 call against its twin (phase 25's holds): one launch a call,
+    two calls bitwise equal, each value within one bf16 ulp of the twin's
+    plus float32's slack (2^-18 of the sum of |products|: the two sum in
+    other orders)."""
+    from tpuseg_torch.ops.rconv import rconv, rconv_plain
+
+    before = rconv.launches
+    got = rconv(x, w)
+    again = rconv(x, w)
+    torch.cuda.synchronize()
+    if rconv.launches - before != 2:
+        raise AssertionError(f"[25] rconv {tag}: not one launch a call")
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"[25] rconv {tag}: two calls differ")
+    twin = rconv_plain(x, w).float()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        mag = torch.nn.functional.conv3d(
+            x.float().abs(), w.to(torch.bfloat16).float().abs(), padding=1)
+    err = (got.float() - twin).abs()
+    e = torch.floor(torch.log2(twin.abs().clamp(min=2.0 ** -126)))
+    over = err - (torch.exp2(e - 7) + 2.0 ** -18 * mag)
+    rec = {"max_abs_err": float(err.max()),
+           "differ_share": float((err > 0).float().mean())}
+    ok = float(over.max()) <= 0
+    del twin, mag, err, e, over, again, got
+    if not ok:
+        raise AssertionError(f"[25] rconv {tag}: past one bf16 ulp of the "
+                             f"twin: {rec}")
+    print(f"[25] rconv {tag}: within one bf16 ulp of the twin (max "
+          f"{rec['max_abs_err']:.3g}, {100 * rec['differ_share']:.2f}% of "
+          f"values differ), two calls equal bitwise", flush=True)
+    return rec
+
+
+def _module_conv(x, w):
+    """What the ResBlock ran before R1: ``models.blocks.Conv3d``'s forward,
+    the weight cast to bf16 and ``F.conv3d`` on the NCDHW tensors (cuDNN,
+    its layout transposes included)."""
+    return torch.nn.functional.conv3d(x, w.to(x.dtype), padding=1)
+
+
+def _rconv_pack_check(g) -> None:
+    """The packing kernel against ``pack_rconv_weights`` (the layout's
+    definition), bitwise, at both N tiles."""
+    from tpuseg_torch.ops import _build
+    from tpuseg_torch.ops.rconv import KC, pack_rconv_weights
+
+    lib = _build.load()
+    for ci, co, nc in ((96, 48, 48), (768, 384, 96)):
+        w = torch.randn((co, ci, 3, 3, 3), device="cuda", generator=g)
+        wp = torch.empty((co // nc, ci // KC, 27, 2, nc, 8),
+                         dtype=torch.bfloat16, device="cuda")
+        _build.check(lib.tpuseg_rconv_pack(w.data_ptr(), wp.data_ptr(), ci,
+                                           co, nc, _build.stream_ptr()),
+                     "rconv weight packing")
+        if not torch.equal(wp.view(torch.int16),
+                           pack_rconv_weights(w, nc).view(torch.int16)):
+            raise AssertionError(f"[25] rconv packing ({ci} -> {co}, N tile "
+                                 f"{nc}) != pack_rconv_weights")
+    print("[25] rconv packing kernel == pack_rconv_weights bitwise at 96 -> "
+          "48 (N tile 48) and 768 -> 384 (N tile 96)", flush=True)
+
+
+def phase_rconv():
+    """R1 against its twin at the 20 conv calls of a tile batch of four
+    96^3 blocks (``RCONV_BLOCKS``) and at ``RCONV_EDGES``; at the net
+    call's shapes the kernel's ms beside its bound, the twin's and the
+    library call's (``F.conv3d`` on the NCDHW bf16 tensors: cuDNN and its
+    layout transposes, what the module ran), and their sums over a net
+    call (device times: each call replayed from a CUDA graph, as on the
+    main path); held: from 96^3 down to 24^3 the kernel below the
+    library; the small planes' shapes at or above it are printed. First the packing kernel against ``pack_rconv_weights``; last
+    dec0's conv3 (96 -> 48, 1x1x1) as a channel product beside
+    ``F.conv3d``, and a net call's 7 channel products (the ResBlocks'
+    conv3 and the head) beside the module's 1x1x1 ``F.conv3d`` calls,
+    summed with the 3x3x3 convs on both routes. Returns the record (dec0's
+    conv1, the largest)."""
+    from tpuseg_torch.ops.rconv import (_sm_count, channel_product, rconv,
+                                        rconv_plain, rconv_plan)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    _rconv_pack_check(g)
+
+    def inputs(shape, co):
+        ci = shape[1]
+        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn((co, ci, 3, 3, 3), device="cuda",
+                        generator=g) / math.sqrt(27 * ci)
+        return x, w
+
+    records, total = {}, {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                          "library_ms": 0.0}
+    slower, deep_slower = [], []
+    for name, ci, co, side in RCONV_BLOCKS:
+        for conv, (a, b) in (("conv1", (ci, co)), ("conv2", (co, co))):
+            shape = (4, a, side, side, side)
+            x, w = inputs(shape, b)
+            plan = rconv_plan(4, a, b, side, side, side, _sm_count(x.device))
+            tag = (f"{name} {conv}: {tuple(shape)} -> {b} ({plan.body}, N "
+                   f"tile {plan.nc}, split {plan.split})")
+            rec = _rconv_check(tag, x, w)
+            vox = x.numel() // a
+            flops = 2 * 27 * a * b * vox
+            n_bytes = 2 * (a + b) * vox + 2 * 27 * a * b
+            rec.update({
+                "ms": graph_ms(lambda: rconv(x, w), 10),
+                "plain_ms": cuda_ms(lambda: rconv_plain(x, w), 3),
+                "library_ms": graph_ms(lambda: _module_conv(x, w), 10),
+                **bound(n_bytes, flops, BF16_FLOPS)})
+            records[f"{name} {conv}"] = {"shape": list(shape), "co": b,
+                                         "plan": list(plan), **rec}
+            for k in total:
+                total[k] += rec[k]
+            if rec["ms"] >= rec["library_ms"]:
+                (slower if side >= 24 else deep_slower).append(
+                    f"{name} {conv} ({rec['ms'] / rec['library_ms']:.2f})")
+            print(f"[25] rconv {tag}: kernel {rec['ms']:.3f} ms "
+                  f"({flops / rec['ms'] / 1e9:.1f} TFLOP/s), bound "
+                  f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}, twin "
+                  f"{rec['plain_ms']:.3f} ms, the module's cast and F.conv3d "
+                  f"{rec['library_ms']:.3f} ms (ratio "
+                  f"{rec['ms'] / rec['library_ms']:.3f})", flush=True)
+            del x, w
+            torch.cuda.empty_cache()
+    for name, shape, co in RCONV_EDGES:
+        x, w = inputs(shape, co)
+        plan = rconv_plan(shape[0], shape[1], co, *shape[2:],
+                          _sm_count(x.device))
+        _rconv_check(f"{name}: {tuple(shape)} -> {co} ({plan.body}, split "
+                     f"{plan.split})", x, w)
+        del x, w
+    print(f"[25] a net call's 20 ResBlock convs (tile batch of four 96^3 "
+          f"blocks): kernel {total['ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.3f}, twin {total['plain_ms']:.3f}, F.conv3d "
+          f"{total['library_ms']:.3f}; a 96x512x512 stack's 16 net calls: "
+          f"kernel {16 * total['ms']:.2f} ms, F.conv3d "
+          f"{16 * total['library_ms']:.2f}", flush=True)
+    # dec0's conv3: 96 -> 48 at 96^3 as a channel product
+    x = torch.randn((4, 96, 96, 96, 96), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    w = (torch.randn((48, 96, 1, 1, 1), device="cuda", generator=g)
+         / math.sqrt(96)).to(torch.bfloat16)
+    got = channel_product(x, w).float()
+    want = torch.nn.functional.conv3d(x, w).float()
+    e = torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126)))
+    gap = float((got - want).abs().max())
+    # both round a float32 sum once: one ulp apart at most, plus slack
+    if float(((got - want).abs() - torch.exp2(e - 7)).max()) > 2.0 ** -12:
+        raise AssertionError(f"[25] channel product past one bf16 ulp of "
+                             f"F.conv3d (largest gap {gap:.3g})")
+    cp_ms = graph_ms(lambda: channel_product(x, w), 10)
+    lib_ms = graph_ms(lambda: torch.nn.functional.conv3d(x, w), 10)
+    print(f"[25] dec0 conv3 (4, 96, 96^3) -> 48, 1x1x1: channel product "
+          f"{cp_ms:.3f} ms, F.conv3d {lib_ms:.3f} ms, largest gap "
+          f"{gap:.3g}", flush=True)
+    del x, w, got, want, e
+    torch.cuda.empty_cache()
+    cp = {"ms": 0.0, "library_ms": 0.0}
+    for name, ci, co, side in RCONV_PRODUCTS:
+        x = torch.randn((4, ci, side, side, side), device="cuda",
+                        generator=g).to(torch.bfloat16)
+        w = torch.randn((co, ci, 1, 1, 1), device="cuda", generator=g)
+        b = torch.randn((co,), device="cuda", generator=g) \
+            if name == "head" else None
+        cp["ms"] += graph_ms(lambda: channel_product(x, w, b), 10)
+        cp["library_ms"] += graph_ms(
+            lambda: torch.nn.functional.conv3d(
+                x, w.to(x.dtype), None if b is None else b.to(x.dtype)), 10)
+        del x, w, b
+        torch.cuda.empty_cache()
+    total["products_ms"] = cp["ms"]
+    total["products_library_ms"] = cp["library_ms"]
+    print(f"[25] a net call's 7 channel products (5 Ups' and enc0's conv3, "
+          f"the head): {cp['ms']:.3f} ms, the module's 1x1x1 F.conv3d "
+          f"{cp['library_ms']:.3f} ms; with the 20 3x3x3 convs: R1 and "
+          f"channel products {total['ms'] + cp['ms']:.3f} ms, F.conv3d "
+          f"{total['library_ms'] + cp['library_ms']:.3f} ms a net call, "
+          f"{16 * (total['ms'] + cp['ms']):.2f} against "
+          f"{16 * (total['library_ms'] + cp['library_ms']):.2f} a "
+          f"96x512x512 stack", flush=True)
+    if deep_slower:
+        print(f"[25] rconv at or above the module's call (ratio) on the "
+              f"small planes: {', '.join(deep_slower)}", flush=True)
+    if slower:
+        raise AssertionError(f"[25] rconv not below the module's call at "
+                             f"{slower}")
+    return {**records["dec0 conv1"], "net_call": total}
 
 
 def pool_nms(peak, threshold: float, radius):
@@ -5845,8 +6114,10 @@ def main(argv=None):
     if want(24):
         kernels["instance_norm_lrelu"] = _timed("phase 24",
                                                 phase_instance_norm)
-    if want(23) or want(24):
-        launches.update(_timed("phase 23-24 main path", swin_main_path,
+    if want(25):
+        kernels["rconv"] = _timed("phase 25", phase_rconv)
+    if want(23) or want(24) or want(25):
+        launches.update(_timed("phase 23-25 main path", swin_main_path,
                                sv.image))
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)

@@ -297,19 +297,26 @@ def test_cpu_route_is_todays_composition(dtype, mode):
     assert instance_norm_lrelu.launches == before
 
 
-@pytest.mark.parametrize("ci,co", [(8, 8), (4, 8), (1, 8)])
+@pytest.mark.parametrize("ci,co", [(16, 16), (32, 16), (1, 16)])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bf16"])
 def test_resblock_is_todays_composition(ci, co, dtype):
     """On the CPU the ResBlock gives today's bits: conv1, norm, lrelu;
-    conv2, norm, + x or + IN(conv3(x)), lrelu."""
+    conv2, norm, + x or + IN(conv3(x)), lrelu; each 3x3x3 conv the float32
+    conv of the operands rounded to x's dtype, rounded once, and conv3 the
+    module's 1x1x1 conv in x's dtype."""
     torch.manual_seed(0)
     block = ResBlock(ci, co)
     x = torch.randn((2, ci, 6, 5, 7)).to(dtype)
+
+    def conv(a, w):
+        return F.conv3d(a.float(), w.to(dtype).float(), padding=1).to(dtype)
+
     with torch.no_grad():
         got = block(x)
-        y = _todays(block.conv1(x))
-        want = _todays(block.conv2(y), x if ci == co else block.conv3(x),
-                       ci != co)
+        y = _todays(conv(x, block.conv1.weight))
+        want = _todays(conv(y, block.conv2.weight),
+                       x if ci == co else F.conv3d(
+                           x, block.conv3.weight.to(dtype)), ci != co)
     assert torch.equal(_bits(got), _bits(want))
 
 

@@ -25,6 +25,11 @@ with float32 parameters, as ``UNet3D`` is.
   r)`` (3x3x3 convs), ``r = IN(conv3(x))`` (1x1x1) where ci != co and
   ``x`` otherwise (convs without bias, non-affine InstanceNorm over each
   (n, c) plane with the biased variance and eps 1e-5, LeakyReLU 0.01).
+  The 3x3x3 convs are :func:`tpuseg_torch.ops.rconv.rconv`: on the card
+  the R1 kernel, NCDHW in and out, bf16 operands, float32 sums rounded
+  once; on the CPU its twin. conv3 and the head are channel products on
+  the NCDHW view (``ops.rconv.channel_product``). The ``Conv3d`` modules
+  hold the parameters.
   Each ``lrelu(IN(.) + r)`` is one call of
   :func:`tpuseg_torch.ops.instnorm.instance_norm_lrelu`: on the card the N1
   kernel pair, float32 statistics and the normalized, added and activated
@@ -55,6 +60,7 @@ from torch import nn
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.models.blocks import Conv3d
 from tpuseg_torch.ops.instnorm import instance_norm_lrelu
+from tpuseg_torch.ops.rconv import channel_product, rconv
 from tpuseg_torch.ops.window_attn import WINDOW, window_attention
 from tpuseg_torch.utils.profiling import mark
 
@@ -203,10 +209,12 @@ class ResBlock(nn.Module):
         self.conv3 = Conv3d(ci, co, 1, bias=False) if ci != co else None
 
     def forward(self, x):
-        y = self.conv2(instance_norm_lrelu(self.conv1(x)))
+        y = rconv(instance_norm_lrelu(rconv(x, self.conv1.weight)),
+                  self.conv2.weight)
         if self.conv3 is None:
             return instance_norm_lrelu(y, x)
-        return instance_norm_lrelu(y, self.conv3(x), norm_r=True)
+        return instance_norm_lrelu(
+            y, channel_product(x, self.conv3.weight), norm_r=True)
 
 
 class Up(nn.Module):
@@ -277,7 +285,7 @@ class SwinUNETR(nn.Module):
         e3 = self.enc3(hidden[2])
         y = self.dec4(self.bottleneck(hidden[4]), hidden[3])
         y = self.dec0(self.dec1(self.dec2(self.dec3(y, e3), e2), e1), e0)
-        out = self.head(y)
+        out = channel_product(y, self.head.weight, self.head.bias)
         return {"fg_logits": out[:, 0].float(),
                 "peak_logits": out[:, 1].float()}
 

@@ -8,8 +8,9 @@ fused eval ConvBlock (K4, ``ops/convblock.py``), the decoder's
 upsample-and-conv with its skip concatenation (``ops/upconv.py``), the
 training path's 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies
 share the weight layout of ``ops/conv_mma.py``, and SwinUNETR's
-shifted-window attention (W1, ``ops/window_attn.py``) and its ResBlocks'
-InstanceNorm, add and LeakyReLU (N1, ``ops/instnorm.py``)."""
+shifted-window attention (W1, ``ops/window_attn.py``), its ResBlocks'
+InstanceNorm, add and LeakyReLU (N1, ``ops/instnorm.py``) and their 3x3x3
+convs (R1, ``ops/rconv.py``)."""
 
 from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
@@ -29,6 +30,9 @@ from tpuseg_torch.ops.merge import (apply_merge_table, pair_aggregate,
                                     saddle_merge_edges, saddle_merge_table)
 from tpuseg_torch.ops.nms import fused_peak_nms
 from tpuseg_torch.ops.peaks import peak_nms, radius3, seed_labels_from_peaks
+from tpuseg_torch.ops.rconv import channel_product, rconv_plain
+# the module keeps its name: the package attribute ``rconv`` is ops/rconv.py
+from tpuseg_torch.ops.rconv import rconv as _rconv
 from tpuseg_torch.ops.relabel import compact_relabel
 from tpuseg_torch.ops.resolve import LAST_CALL_STATE as _RESOLVE_STATE
 from tpuseg_torch.ops.resolve import (chase_pass, chase_resolve, flood_pass,
@@ -46,7 +50,8 @@ from tpuseg_torch.ops.window_attn import (window_attention,
 KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
                    label_counts, union_closure, pair_aggregate, pair_slots,
-                   upsample_conv_cat, window_attention, instance_norm_lrelu)
+                   upsample_conv_cat, window_attention, instance_norm_lrelu,
+                   _rconv)
 
 #: the state the wrappers keep about their last call, ``(holder,
 #: attribute)``, declared by each wrapper's module
