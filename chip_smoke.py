@@ -352,10 +352,32 @@ Phases, in order; any failure raises and exits non-zero:
     captured: a replayed call launches W1 8 times a net call, 128 in all,
     N1 40 times a net call (4 a ResBlock), 640 in all, and R1 20 times a
     net call, 320 in all (the final record's ``launches``).
+26. (needs no checkpoint) MedNeXt's depthwise 5^3 convs
+    (``ops/dwconv.dwconv``, D1) against their twin (``F.conv3d`` /
+    ``F.conv_transpose3d`` with ``groups=C`` in float32, TF32 off, of the
+    same bf16 operands, rounded once) at each distinct shape of the 62
+    calls of a tile batch of two 128^3 blocks (stride 1 at 32 x 128^3 down
+    to 512 x 8^3, stride 2 at 32 x 128^3 down to 256 x 16^3, transposed at
+    512 x 8^3 up to 64 x 64^3) and at edge shapes (ragged sides, widths
+    not a multiple of 4, batch 1, a tensor one element past 16-byte
+    alignment): one launch a call, two calls bitwise equal, each value
+    within one bf16 ulp of the twin's plus float32's slack; the kernel's ms
+    beside its bound (the larger of its FMAs at the card's float32 rate and
+    its bytes), the twin's and the
+    library call's (``F.conv3d`` / ``F.conv_transpose3d`` with
+    ``groups=C`` in bf16), per shape and summed over a net call. Then N1's
+    GroupNorm mode (``weight``, ``bias``, slope 1) against
+    ``F.group_norm`` and the float64 value at the GroupNorms' shapes; then
+    the main path: MedNeXt-L at its published widths (seeded weights,
+    bf16) through ``make_infer_fn`` on the 96 x 512 x 512 stack at the
+    benchmark's tiles (36 blocks of 128^3, 18 net calls of 2), captured: a
+    replayed call launches D1 62 times a net call, 1116 in all, and N1 124
+    times a net call (two a GroupNorm), 2232 in all (the final record's
+    ``mednext_launches``).
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
 alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-25 bring
-nothing). Without
+nothing, 26 nothing). Without
 arguments every phase runs; the second-to-last lines are then the kernels'
 JSON record (with each kernel's launches on the main path, on the streamed
 path of phase 14, on the sharded paths of phase 15, in the worker
@@ -480,6 +502,9 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     # nor their 3x3x3 convs
     "rconv": ("tpuseg_torch/csrc/rconv.cu",
               "tpuseg_torch/models/swin_unetr.py"),
+    # nor MedNeXt's depthwise convs
+    "dwconv": ("tpuseg_torch/csrc/dwconv.cu",
+               "tpuseg_torch/models/mednext.py"),
 }
 # the saddle merge's pair-table kernels (ops/merge.py), launched once each
 # by every merge-on call, once each a shard by a sharded one
@@ -489,6 +514,9 @@ PAIR_KERNELS = ("pair_aggregate", "pair_slots")
 # (phases 23-25; the
 # benchmark's infer-swin-stack600), never by the U-Net's legs
 SWIN_KERNELS = ("window_attention", "instance_norm_lrelu", "rconv")
+# MedNeXt's depthwise convs (ops/dwconv.py): launched by that net alone
+# (phase 26; the benchmark's infer-mednext-stack600)
+MEDNEXT_KERNELS = ("dwconv",)
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
 HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
@@ -3134,9 +3162,10 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     # every kernel of a Pallas kernel; of the histograms, H3 counts labels
     # for the one-volume filter only (the sharded paths compact packed ids);
     # M1/M2 run with the saddle merge, which these legs leave off (phase 19
-    # holds them on the merge-on calls); W1 and N1 with SwinUNETR alone
+    # holds them on the merge-on calls); W1, N1 and R1 with SwinUNETR
+    # alone, D1 with MedNeXt alone
     missing = [k for k in KERNELS if k not in ("label_counts",) + PAIR_KERNELS
-               + SWIN_KERNELS and not acc.get(k)]
+               + SWIN_KERNELS + MEDNEXT_KERNELS and not acc.get(k)]
     if missing:
         raise AssertionError(f"[16] the multi-process paths never launched "
                              f"{missing}: {acc}")
@@ -4243,6 +4272,259 @@ def phase_rconv():
         raise AssertionError(f"[25] rconv not below the module's call at "
                              f"{slower}")
     return {**records["dec0 conv1"], "net_call": total}
+
+
+#: MedNeXt-L's depthwise convs of a net call (a tile batch of two 128^3
+#: blocks), by distinct shape: (name, channels, input side, stride,
+#: transposed, calls a net call)
+DWCONV_CALLS = (("level 0", 32, 128, 1, False, 6),
+                ("level 1", 64, 64, 1, False, 8),
+                ("level 2", 128, 32, 1, False, 16),
+                ("level 3", 256, 16, 1, False, 16),
+                ("level 4", 512, 8, 1, False, 8),
+                ("down 0", 32, 128, 2, False, 1),
+                ("down 1", 64, 64, 2, False, 1),
+                ("down 2", 128, 32, 2, False, 1),
+                ("down 3", 256, 16, 2, False, 1),
+                ("up 3", 512, 8, 2, True, 1),
+                ("up 2", 256, 16, 2, True, 1),
+                ("up 1", 128, 32, 2, True, 1),
+                ("up 0", 64, 64, 2, True, 1))
+#: D1's edges: (name, shape, stride, transposed): ragged sides and widths
+#: not a multiple of 4 or 8 in each form, batch 1, a width of 8 (rows of
+#: 16-byte runs) in a tensor that starts one element past 16-byte alignment
+#: (the runs load element by element)
+DWCONV_EDGES = (("ragged", (2, 3, 13, 21, 37), 1, False),
+                ("thin", (1, 2, 1, 3, 5), 1, False),
+                ("ragged, stride 2", (2, 3, 11, 9, 35), 2, False),
+                ("ragged, transposed", (2, 3, 5, 7, 19), 2, True),
+                ("width 8, unaligned", (1, 4, 9, 17, 8), 1, False))
+#: the hand-written kernels a MedNeXt-L net call launches: D1 once a
+#: depthwise conv (54 blocks, 4 down, 4 up), N1 twice a GroupNorm (one
+#: after each)
+MEDNEXT_LAUNCHES_PER_NET_CALL = {"dwconv": 62, "instance_norm_lrelu": 124}
+
+
+def _dwconv_library(x, w, b, stride, transposed):
+    """The library's grouped conv in bf16 (cuDNN), the weight and the bias
+    cast as a module would."""
+    fn = (torch.nn.functional.conv_transpose3d if transposed
+          else torch.nn.functional.conv3d)
+    return fn(x, w.to(x.dtype), b.to(x.dtype), stride=stride, padding=2,
+              groups=x.shape[1])
+
+
+def _dwconv_check(tag, x, w, b, stride, transposed) -> dict:
+    """One D1 call against its twin (phase 26's holds): one launch a call,
+    two calls bitwise equal, each value within one bf16 ulp of the twin's
+    plus float32's slack (2^-18 of the sum of |products|: the two sum in
+    other orders)."""
+    from tpuseg_torch.ops.dwconv import dwconv, dwconv_plain
+
+    before = dwconv.launches
+    got = dwconv(x, w, b, stride, transposed)
+    again = dwconv(x, w, b, stride, transposed)
+    torch.cuda.synchronize()
+    if dwconv.launches - before != 2:
+        raise AssertionError(f"[26] dwconv {tag}: not one launch a call")
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"[26] dwconv {tag}: two calls differ")
+    twin = dwconv_plain(x, w, b, stride, transposed).float()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        fn = (torch.nn.functional.conv_transpose3d if transposed
+              else torch.nn.functional.conv3d)
+        mag = fn(x.float().abs(), w.to(torch.bfloat16).float().abs(),
+                 b.to(torch.bfloat16).float().abs(), stride=stride,
+                 padding=2, groups=x.shape[1])
+    err = (got.float() - twin).abs()
+    e = torch.floor(torch.log2(twin.abs().clamp(min=2.0 ** -126)))
+    over = err - (torch.exp2(e - 7) + 2.0 ** -18 * mag)
+    rec = {"max_abs_err": float(err.max()),
+           "differ_share": float((err > 0).float().mean())}
+    ok = float(over.max()) <= 0
+    del twin, mag, err, e, over, again, got
+    if not ok:
+        raise AssertionError(f"[26] dwconv {tag}: past one bf16 ulp of the "
+                             f"twin: {rec}")
+    print(f"[26] dwconv {tag}: within one bf16 ulp of the twin (max "
+          f"{rec['max_abs_err']:.3g}, {100 * rec['differ_share']:.2f}% of "
+          f"values differ), two calls equal bitwise", flush=True)
+    return rec
+
+
+def _gn_check(tag, a, weight, bias) -> dict:
+    """One N1 call in its GroupNorm mode against ``F.group_norm`` and the
+    float64 value: two launches a call, two calls bitwise equal, each
+    value within one bf16 rounding of the float64 value plus float32's
+    slack, the mean error no larger than ``F.group_norm``'s in bf16 (the
+    module's call: the affine cast to bf16)."""
+    from tpuseg_torch.ops.instnorm import instance_norm_lrelu
+
+    before = instance_norm_lrelu.launches
+    got = instance_norm_lrelu(a, weight=weight, bias=bias, slope=1.0)
+    again = instance_norm_lrelu(a, weight=weight, bias=bias, slope=1.0)
+    torch.cuda.synchronize()
+    if instance_norm_lrelu.launches - before != 4:
+        raise AssertionError(f"[26] GroupNorm {tag}: not two launches a "
+                             "call")
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"[26] GroupNorm {tag}: two calls differ")
+    t = a.double()
+    var, mean = torch.var_mean(t, tuple(range(2, t.dim())), correction=0,
+                               keepdim=True)
+    shape = (1, -1) + (1,) * (t.dim() - 2)
+    y = (t - mean) / torch.sqrt(var + 1e-5)
+    exact = y * weight.double().view(shape) + bias.double().view(shape)
+    scale = 1 + (y * weight.double().view(shape)).abs() + bias.double().abs(
+    ).view(shape)
+    lib = torch.nn.functional.group_norm(a, a.shape[1], weight.to(a.dtype),
+                                         bias.to(a.dtype), 1e-5)
+    err = (got.double() - exact).abs()
+    err_lib = (lib.double() - exact).abs()
+    e = torch.floor(torch.log2(exact.abs().clamp(min=2.0 ** -126)))
+    over = err - (torch.exp2(e - 8) + 1e-5 * scale)
+    rec = {"max_err": float(err.max()), "mean_err": float(err.mean()),
+           "library_max_err": float(err_lib.max()),
+           "library_mean_err": float(err_lib.mean())}
+    ok = float(over.max()) <= 0 and rec["mean_err"] <= rec["library_mean_err"]
+    del t, y, exact, scale, lib, err, err_lib, e, over, again, got
+    if not ok:
+        raise AssertionError(f"[26] GroupNorm {tag}: past its one rounding "
+                             f"of the float64 value: {rec}")
+    print(f"[26] GroupNorm {tag}: within one rounding of float64 (max "
+          f"{rec['max_err']:.3g}, mean {rec['mean_err']:.3g}; F.group_norm "
+          f"{rec['library_max_err']:.3g}, {rec['library_mean_err']:.3g}), "
+          f"two calls equal bitwise", flush=True)
+    return rec
+
+
+def phase_dwconv():
+    """D1 against its twin at each distinct shape of a MedNeXt-L net call
+    (``DWCONV_CALLS``) and at ``DWCONV_EDGES``; at the net call's shapes
+    the kernel's ms (CUDA graph replays) beside its bound (the larger of
+    its FMAs at the float32 rate and its bytes, each element read and
+    written once in bf16; a tensor-core form's bound is the bytes alone),
+    the twin's and the library call's, and their sums over a net call by
+    each shape's calls. Then N1's GroupNorm mode at the GroupNorms' shapes
+    (the depthwise outputs). Returns the record (level 0's, the largest)."""
+    from tpuseg_torch.ops.dwconv import dwconv, dwconv_plain, out_side
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    records = {}
+    total = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bytes_ms": 0.0}
+    gn_shapes = []
+    for name, c, side, stride, transposed, calls in DWCONV_CALLS:
+        x = torch.randn((2, c, side, side, side), device="cuda",
+                        generator=g).to(torch.bfloat16)
+        w = torch.randn((c, 1, 5, 5, 5), device="cuda", generator=g) / 11.2
+        b = 0.1 * torch.randn((c,), device="cuda", generator=g)
+        o = out_side(side, stride, transposed)
+        form = ("transposed" if transposed else f"stride {stride}")
+        tag = f"{name}: (2, {c}, {side}^3) {form} -> {o}^3"
+        rec = _dwconv_check(tag, x, w, b, stride, transposed)
+        n_in, n_out = x.numel(), 2 * c * o ** 3
+        flops = 2 * 125 * (n_in if transposed else n_out)
+        n_bytes = 2 * (n_in + n_out)
+        rec.update({
+            "ms": graph_ms(lambda: dwconv(x, w, b, stride, transposed), 10),
+            "plain_ms": cuda_ms(lambda: dwconv_plain(x, w, b, stride,
+                                                     transposed), 2),
+            "library_ms": graph_ms(lambda: _dwconv_library(
+                x, w, b, stride, transposed), 5),
+            "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            **bound(n_bytes, flops, F32_FLOPS)})
+        records[name] = {"shape": list(x.shape), "stride": stride,
+                         "transposed": transposed, "calls": calls, **rec}
+        for k in total:
+            total[k] += calls * rec[k]
+        print(f"[26] dwconv {tag} (x{calls} a net call): kernel "
+              f"{rec['ms']:.3f} ms ({flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{n_bytes / rec['ms'] / 1e6:.0f} GB/s), bound "
+              f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} at 67 TFLOP/s "
+              f"float32 (bytes alone {rec['bytes_ms']:.3f}), twin "
+              f"{rec['plain_ms']:.3f} ms, library (cuDNN, bf16) "
+              f"{rec['library_ms']:.3f} ms (ratio "
+              f"{rec['ms'] / rec['library_ms']:.3f})", flush=True)
+        gn_shapes.append((name, (2, c) + (o,) * 3))
+        del x, w, b
+        torch.cuda.empty_cache()
+    for name, shape, stride, transposed in DWCONV_EDGES:
+        c = shape[1]
+        x = torch.randn(math.prod(shape) + 1, device="cuda",
+                        generator=g).to(torch.bfloat16)
+        x = x[1:].view(shape) if "unaligned" in name else x[:-1].view(shape)
+        w = torch.randn((c, 1, 5, 5, 5), device="cuda", generator=g) / 11.2
+        b = 0.1 * torch.randn((c,), device="cuda", generator=g)
+        _dwconv_check(f"{name}: {tuple(shape)} stride {stride}"
+                      f"{' transposed' if transposed else ''}", x, w, b,
+                      stride, transposed)
+        del x, w, b
+    print(f"[26] a net call's 62 depthwise convs (tile batch of two 128^3 "
+          f"blocks): kernel {total['ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.3f} (bytes alone {total['bytes_ms']:.3f}), "
+          f"twin {total['plain_ms']:.3f}, library {total['library_ms']:.3f}; "
+          f"a 96x512x512 stack's 18 net calls: kernel "
+          f"{18 * total['ms']:.2f} ms, library "
+          f"{18 * total['library_ms']:.2f}", flush=True)
+    for name, shape in gn_shapes + [("odd planes", (2, 3, 5, 7, 11))]:
+        a = (torch.randn(shape, device="cuda", generator=g) * 3
+             + 1).to(torch.bfloat16)
+        weight = 1 + 0.3 * torch.randn((shape[1],), device="cuda",
+                                       generator=g)
+        bias = 0.3 * torch.randn((shape[1],), device="cuda", generator=g)
+        _gn_check(f"{name}: {tuple(shape)} bf16", a, weight, bias)
+        del a
+        torch.cuda.empty_cache()
+    return {**records["level 0"], "net_call": total}
+
+
+def mednext_main_path(image: np.ndarray) -> dict:
+    """D1's and N1's launches in one replayed call of MedNeXt-L (seeded
+    weights, bf16) through ``make_infer_fn`` on ``image`` at the benchmark
+    cell's tiles: (96, 96, 96) with halo (16, 16, 16), blocks of 128^3, two
+    a net call. Held: the call captured, and
+    ``MEDNEXT_LAUNCHES_PER_NET_CALL`` of each a net call."""
+    from tpuseg_torch.core import Config, InferConfig
+    from tpuseg_torch.infer import make_infer_fn
+    from tpuseg_torch.infer.tiles import tile_grid
+    from tpuseg_torch.models import build_mednext
+    from tpuseg_torch.ops.dwconv import dwconv
+    from tpuseg_torch.ops.instnorm import instance_norm_lrelu
+
+    model = build_mednext(seed=SEED).cuda()
+    cfg = Config(infer=InferConfig(tile=(96, 96, 96), halo=(16, 16, 16),
+                                   tile_batch=2, compute_dtype="bfloat16",
+                                   apply_impl="flax", program="fused"))
+    infer = make_infer_fn(model, cfg)
+    vol = torch.from_numpy(image).cuda()
+    for _ in range(2):                  # eager, then the capture
+        infer(vol)
+    torch.cuda.synchronize()
+    wrappers = {"dwconv": dwconv, "instance_norm_lrelu": instance_norm_lrelu}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    infer(vol)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n = {k: w.launches for k, w in wrappers.items()}
+    blocks = len(tile_grid(vol.shape, cfg.infer.tile))
+    calls = -(-blocks // cfg.infer.tile_batch)
+    want = {k: m * calls for k, m in MEDNEXT_LAUNCHES_PER_NET_CALL.items()}
+    if infer.mode != "captured" or n != want:
+        raise AssertionError(f"[26] main path: mode {infer.mode}, launches "
+                             f"{n}, not {want} ({calls} net calls)")
+    print(f"[26] main path: MedNeXt-L (kernel 5, bf16) through make_infer_fn "
+          f"on {tuple(vol.shape)}, {blocks} blocks of 128^3 in {calls} net "
+          f"calls, captured: a replayed call launched dwconv "
+          f"{n['dwconv']} times and instance_norm_lrelu "
+          f"{n['instance_norm_lrelu']} times ({wall_ms:.1f} ms wall)",
+          flush=True)
+    infer.release()
+    del infer, model, vol
+    torch.cuda.empty_cache()
+    return n
 
 
 def pool_nms(peak, threshold: float, radius):
@@ -6119,6 +6401,11 @@ def main(argv=None):
     if want(23) or want(24) or want(25):
         launches.update(_timed("phase 23-25 main path", swin_main_path,
                                sv.image))
+    mednext = {}
+    if want(26):
+        kernels["dwconv"] = _timed("phase 26", phase_dwconv)
+        mednext = _timed("phase 26 main path", mednext_main_path, sv.image)
+        launches["dwconv"] = mednext["dwconv"]
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
     if want(12):
@@ -6141,6 +6428,7 @@ def main(argv=None):
                "sharded_launches": sharded.get(k, 0),
                "multiprocess_launches": multiproc.get(k, 0),
                "touching_launches": touching.get(k, 0),
+               "mednext_launches": mednext.get(k, 0),
                **({"tile_launches": tile_launches[k]}
                   if k in tile_launches else {}),
                **({"passes_run": passes_ran[k]} if k in passes_ran else {}),

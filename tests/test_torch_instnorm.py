@@ -167,19 +167,24 @@ def model_coefficients(parts):
         var + torch.tensor(EPS, dtype=F32))
 
 
-def model_apply(a, r=None, norm_r=False):
-    """N1's result: the float32 expression from the model's statistics,
-    rounded to ``a``'s dtype once."""
+def model_apply(a, r=None, norm_r=False, weight=None, bias=None,
+                slope=SLOPE):
+    """N1's result: the float32 expression from the model's statistics
+    (with the GroupNorm mode's per-channel affine where given), rounded to
+    ``a``'s dtype once."""
     planes = a.shape[0] * a.shape[1]
     ma, ia = model_coefficients(model_partials(a))
     y = (a.float().reshape(planes, -1) - ma[:, None]) * ia[:, None]
+    if weight is not None:
+        y = (y * weight.float().repeat(a.shape[0])[:, None]
+             + bias.float().repeat(a.shape[0])[:, None])
     if r is not None:
         rr = r.float().reshape(planes, -1)
         if norm_r:
             mb, ib = model_coefficients(model_partials(r))
             rr = (rr - mb[:, None]) * ib[:, None]
         y = y + rr
-    y = torch.where(y > 0, y, y * torch.tensor(SLOPE, dtype=F32))
+    y = torch.where(y > 0, y, y * torch.tensor(slope, dtype=F32))
     return y.to(a.dtype).reshape(a.shape)
 
 
@@ -278,6 +283,37 @@ def test_model_is_the_torch_composition(shape, dtype, mode):
         bound = _bf16_half_ulp(exact) + 1e-5 * scale
         assert bool((err <= bound).all()), float((err - bound).max())
         assert float(err.mean()) <= float(err_twin.mean())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES[1:],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_mode_model_is_the_twin(shape, dtype):
+    """MedNeXt's GroupNorm mode (a per-channel weight and bias, R = 0,
+    slope 1): the model (the kernel's statistics, then ``IN(a) * g + b``
+    rounded once) against the twin (``F.group_norm`` in float32, rounded
+    once) and the float64 value, in units of 1 + |IN(a) g| + |b|."""
+    a, _, _ = _inputs(shape, dtype, "none", seed=7)
+    g = torch.Generator().manual_seed(8)
+    weight = 1 + 0.5 * torch.randn(shape[1], generator=g)
+    bias = 0.5 * torch.randn(shape[1], generator=g)
+    got = model_apply(a, weight=weight, bias=bias, slope=1.0)
+    twin = instance_norm_lrelu_plain(a, weight=weight, bias=bias, slope=1.0)
+    norm, _ = _exact(a, None, False)
+    norm = torch.where(norm > 0, norm, norm / SLOPE)     # undo the lrelu
+    view = (1, -1) + (1,) * (a.dim() - 2)
+    exact = norm * weight.double().view(view) + bias.double().view(view)
+    scale = 1 + (norm * weight.double().view(view)).abs() \
+        + bias.double().abs().view(view)
+    err = (got.double() - exact).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-5 * scale).all()), float((err / scale).max())
+        torch.testing.assert_close(got, twin, rtol=1e-4, atol=1e-4)
+    else:
+        bound = _bf16_half_ulp(exact) + 1e-5 * scale
+        assert bool((err <= bound).all()), float((err - bound).max())
+        assert float((got.float() - twin.float()).abs().max()) <= float(
+            (2 * bound).max())
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bf16"])

@@ -9,6 +9,10 @@
 //
 // (a ResBlock after conv1; conv2's output with the block's input; conv2's
 // with conv3's), computed in float32 and rounded to the storage type once.
+// Given a per-channel gamma and beta (float32; channel = plane % channels),
+// IN(a) becomes IN(a) * gamma + beta: MedNeXt's GroupNorm of one group a
+// channel, which it calls in mode 0 with slope 1 (the identity). Without
+// them the kernels are the ones instantiated before the affine existed.
 //
 // What bounds it: bytes. A 96^3 block's ResBlocks hold ~290 M voxels, and
 // torch's composition reads and writes each tensor 8 times (statistics,
@@ -206,26 +210,29 @@ instnorm_stats_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <int MODE>
+template <int MODE, bool AFFINE>
 __device__ __forceinline__ float norm_add_act(float a, float r,
-                                              const float (&k)[4],
+                                              const float (&k)[6],
                                               float slope) {
   float y = __fmul_rn(__fsub_rn(a, k[0]), k[1]);
+  if (AFFINE) y = __fadd_rn(__fmul_rn(y, k[4]), k[5]);
   if (MODE == 1) y = __fadd_rn(y, r);
   if (MODE == 2) y = __fadd_rn(y, __fmul_rn(__fsub_rn(r, k[2]), k[3]));
   return y > 0.f ? y : __fmul_rn(y, slope);
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool AFFINE>
 __global__ void __launch_bounds__(kThreads)
 instnorm_apply_kernel(const T* __restrict__ a, const T* __restrict__ r,
                       const float4* __restrict__ part, T* __restrict__ out,
                       long long planes, long long L, int chunk, int chunks,
-                      float eps, float slope) {
+                      float eps, float slope, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, int channels) {
   using P = Pack<T>;
   using Raw = typename P::Raw;
   constexpr int V = P::kN;
-  __shared__ float coef[4];           // mean and 1 / sqrt(var + eps): a, r
+  // mean and 1 / sqrt(var + eps) of a, then of r; gamma and beta
+  __shared__ float coef[6];
   const long long plane = blockIdx.x / chunks;
   const int c = blockIdx.x % chunks, t = threadIdx.x;
   const int warp = t >> 5, lane = t & 31;
@@ -241,17 +248,23 @@ instnorm_apply_kernel(const T* __restrict__ a, const T* __restrict__ r,
       coef[2 * warp] = s.m;
       coef[2 * warp + 1] =
           __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(s.q, s.n), eps)));
+      if (AFFINE && warp == 0) {
+        const int ch = static_cast<int>(plane % channels);
+        coef[4] = gamma[ch];
+        coef[5] = beta[ch];
+      }
     }
   }
   __syncthreads();
-  const float k[4] = {coef[0], coef[1], coef[2], coef[3]};
+  const float k[6] = {coef[0], coef[1], coef[2], coef[3],
+                      AFFINE ? coef[4] : 0.f, AFFINE ? coef[5] : 0.f};
 
   const Span sp = chunk_span<V>(plane, c, L, chunk);
   const T* xa = a + sp.g0;
   const T* xr = MODE ? r + sp.g0 : nullptr;
   T* xo = out + sp.g0;
   auto one = [&](int i) {
-    xo[i] = P::store(norm_add_act<MODE>(
+    xo[i] = P::store(norm_add_act<MODE, AFFINE>(
         P::scalar(xa[i]), MODE ? P::scalar(xr[i]) : 0.f, k, slope));
   };
   if (t < sp.head) one(t);
@@ -278,7 +291,7 @@ instnorm_apply_kernel(const T* __restrict__ a, const T* __restrict__ r,
       if (MODE) P::unpack(br[u], y);
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        x[j] = norm_add_act<MODE>(x[j], MODE ? y[j] : 0.f, k, slope);
+        x[j] = norm_add_act<MODE, AFFINE>(x[j], MODE ? y[j] : 0.f, k, slope);
       vo[v] = P::pack(x);
     }
   }
@@ -294,24 +307,38 @@ int launch_stats(const void* a, const void* b, void* part, long long planes,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool AFFINE>
+void launch_apply_mode(const T* pa, const T* pr, const float4* pp, T* po,
+                       long long planes, long long L, int chunk, int chunks,
+                       int mode, float eps, float slope, const float* g,
+                       const float* b, int channels, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(planes * chunks);
+  if (mode == 0)
+    instnorm_apply_kernel<T, 0, AFFINE><<<grid, kThreads, 0, st>>>(
+        pa, pr, pp, po, planes, L, chunk, chunks, eps, slope, g, b, channels);
+  else if (mode == 1)
+    instnorm_apply_kernel<T, 1, AFFINE><<<grid, kThreads, 0, st>>>(
+        pa, pr, pp, po, planes, L, chunk, chunks, eps, slope, g, b, channels);
+  else
+    instnorm_apply_kernel<T, 2, AFFINE><<<grid, kThreads, 0, st>>>(
+        pa, pr, pp, po, planes, L, chunk, chunks, eps, slope, g, b, channels);
+}
+
 template <typename T>
 int launch_apply(const void* a, const void* r, const void* part, void* out,
                  long long planes, long long L, int chunk, int chunks,
-                 int mode, float eps, float slope, cudaStream_t st) {
-  const unsigned grid = static_cast<unsigned>(planes * chunks);
+                 int mode, float eps, float slope, const float* g,
+                 const float* b, int channels, cudaStream_t st) {
   const T* pa = static_cast<const T*>(a);
   const T* pr = static_cast<const T*>(r);
   const float4* pp = static_cast<const float4*>(part);
   T* po = static_cast<T*>(out);
-  if (mode == 0)
-    instnorm_apply_kernel<T, 0><<<grid, kThreads, 0, st>>>(
-        pa, pr, pp, po, planes, L, chunk, chunks, eps, slope);
-  else if (mode == 1)
-    instnorm_apply_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        pa, pr, pp, po, planes, L, chunk, chunks, eps, slope);
+  if (g)
+    launch_apply_mode<T, true>(pa, pr, pp, po, planes, L, chunk, chunks,
+                               mode, eps, slope, g, b, channels, st);
   else
-    instnorm_apply_kernel<T, 2><<<grid, kThreads, 0, st>>>(
-        pa, pr, pp, po, planes, L, chunk, chunks, eps, slope);
+    launch_apply_mode<T, false>(pa, pr, pp, po, planes, L, chunk, chunks,
+                                mode, eps, slope, g, b, channels, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -345,21 +372,29 @@ extern "C" int tpuseg_instnorm_stats(const void* a, const void* b, void* part,
              : launch_stats<float>(a, b, part, planes, L, chunk, chunks, st);
 }
 
-// out = lrelu(IN(a) + R) (mode 0: R = 0; 1: R = r; 2: R = IN(r)) from the
-// partials tpuseg_instnorm_stats wrote with the same planes, L and chunk.
+// out = lrelu(IN(a) * gamma + beta + R) (mode 0: R = 0; 1: R = r; 2: R =
+// IN(r); gamma and beta of `channels` channels, both null for none) from
+// the partials tpuseg_instnorm_stats wrote with the same planes, L and chunk.
 extern "C" int tpuseg_instnorm_apply(const void* a, const void* r,
                                      const void* part, void* out,
                                      long long planes, long long L, int chunk,
                                      int mode, int elem_bytes, float eps,
-                                     float slope, void* stream) {
+                                     float slope, const void* gamma,
+                                     const void* beta, int channels,
+                                     void* stream) {
   using namespace tpuseg;
   const int chunks = chunk_count(planes, L, chunk, elem_bytes);
-  if (chunks < 0 || mode < 0 || mode > 2 || (mode != 0 && r == nullptr))
+  if (chunks < 0 || mode < 0 || mode > 2 || (mode != 0 && r == nullptr) ||
+      (gamma == nullptr) != (beta == nullptr) ||
+      (gamma != nullptr && channels < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
   return elem_bytes == 2
              ? launch_apply<__nv_bfloat16>(a, r, part, out, planes, L, chunk,
-                                           chunks, mode, eps, slope, st)
+                                           chunks, mode, eps, slope, g, b,
+                                           channels, st)
              : launch_apply<float>(a, r, part, out, planes, L, chunk, chunks,
-                                   mode, eps, slope, st);
+                                   mode, eps, slope, g, b, channels, st);
 }

@@ -9,13 +9,18 @@ upsample-and-conv with its skip concatenation (``ops/upconv.py``), the
 training path's 3x3x3 conv (K6, ``ops/convtrain.py``), whose bf16 bodies
 share the weight layout of ``ops/conv_mma.py``, and SwinUNETR's
 shifted-window attention (W1, ``ops/window_attn.py``), its ResBlocks'
-InstanceNorm, add and LeakyReLU (N1, ``ops/instnorm.py``) and their 3x3x3
-convs (R1, ``ops/rconv.py``)."""
+InstanceNorm, add and LeakyReLU (N1, ``ops/instnorm.py``; MedNeXt's
+GroupNorm too) and their 3x3x3 convs (R1, ``ops/rconv.py``), and MedNeXt's
+depthwise convs (D1, ``ops/dwconv.py``)."""
 
 from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
                                         fused_convblock_plain)
 from tpuseg_torch.ops.convtrain import conv3x3, conv3x3_plain, conv3x3_raw
+# the module keeps its name: the package attribute ``dwconv`` is
+# ops/dwconv.py
+from tpuseg_torch.ops.dwconv import dwconv as _dwconv
+from tpuseg_torch.ops.dwconv import dwconv_plain
 from tpuseg_torch.ops.components import (connected_components,
                                          label_components,
                                          labels_are_connected)
@@ -51,7 +56,7 @@ KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
                    label_counts, union_closure, pair_aggregate, pair_slots,
                    upsample_conv_cat, window_attention, instance_norm_lrelu,
-                   _rconv)
+                   _rconv, _dwconv)
 
 #: the state the wrappers keep about their last call, ``(holder,
 #: attribute)``, declared by each wrapper's module
@@ -62,7 +67,8 @@ __all__ = [
     "ascent_labels", "bin_counts",
     "chase_pass",
     "chase_resolve", "compact_relabel", "connected_components", "conv3x3",
-    "conv3x3_plain", "conv3x3_raw", "flood_pass", "flood_resolve",
+    "conv3x3_plain", "conv3x3_raw", "dwconv_plain", "flood_pass",
+    "flood_resolve",
     "flood_truncation_count", "fold_bn_affine", "fused_convblock",
     "fused_convblock_plain", "fused_peak_nms", "instance_norm_lrelu",
     "instance_norm_lrelu_plain", "label_components",

@@ -67,11 +67,13 @@ SIGNATURES = {
     "tpuseg_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _P],
     "tpuseg_instnorm_stats": [_P, _P, _P, _L, _L, _I, _I, _P],
-    "tpuseg_instnorm_apply": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _F, _F, _P],
+    "tpuseg_instnorm_apply": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _F, _F, _P,
+                              _P, _I, _P],
     "tpuseg_rconv_pack": [_P, _P, _I, _I, _I, _P],
     "tpuseg_rconv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
     "tpuseg_rconv_ci1": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tpuseg_dwconv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
