@@ -371,9 +371,25 @@ Phases, in order; any failure raises and exits non-zero:
     the main path: MedNeXt-L at its published widths (seeded weights,
     bf16) through ``make_infer_fn`` on the 96 x 512 x 512 stack at the
     benchmark's tiles (36 blocks of 128^3, 18 net calls of 2), captured: a
-    replayed call launches D1 62 times a net call, 1116 in all, and N1 124
-    times a net call (two a GroupNorm), 2232 in all (the final record's
-    ``mednext_launches``).
+    replayed call launches D1 62 times a net call, 1116 in all, N1 124
+    times a net call (two a GroupNorm), 2232 in all, and E1 62 times a net
+    call, 1116 in all (the final record's ``mednext_launches``).
+    Between the two, MedNeXt's block MLP (``ops/mlp.fused_mlp``, E1)
+    against its twin (float32 products of the same bf16 operands, the
+    expanded value and the output each rounded once) at each of the 13
+    distinct (ci, e, co) of a net call at its voxel counts (a tile batch of
+    two 128^3 blocks: the blocks' 128^3 ... 8^3, the down blocks' halved
+    sides, the up blocks' (2S - 1)^3, each with its residual) and at edge
+    shapes (ragged tiles, rows not 16-byte aligned, no residual, two
+    output slices at a ragged tile): one launch a call, two calls bitwise
+    equal, each value within one bf16 ulp of the twin's plus one ulp of
+    every expanded value it sums (a flip of the expanded rounding), the
+    mean error against the float64 composition (the same two roundings)
+    no larger than the twin's; the kernel's ms (weights packed, as a call
+    does) beside its bound (the larger of its FLOPs at the bf16 tensor-core
+    rate and its bytes), the twin's and the torch composition it replaces
+    (``channel_product``, ``F.gelu``, ``channel_product``, the residual
+    add), per shape and summed over a net call.
 
 ``--phases 3,11`` runs phases 1-2 and only the named ones (to try a kernel
 alone; no final record; 12 brings 4 with it, 13-20 bring 9, 21-25 bring
@@ -505,6 +521,9 @@ KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel it replaces)
     # nor MedNeXt's depthwise convs
     "dwconv": ("tpuseg_torch/csrc/dwconv.cu",
                "tpuseg_torch/models/mednext.py"),
+    # nor its block MLP
+    "fused_mlp": ("tpuseg_torch/csrc/mlp.cu",
+                  "tpuseg_torch/models/mednext.py"),
 }
 # the saddle merge's pair-table kernels (ops/merge.py), launched once each
 # by every merge-on call, once each a shard by a sharded one
@@ -514,9 +533,10 @@ PAIR_KERNELS = ("pair_aggregate", "pair_slots")
 # (phases 23-25; the
 # benchmark's infer-swin-stack600), never by the U-Net's legs
 SWIN_KERNELS = ("window_attention", "instance_norm_lrelu", "rconv")
-# MedNeXt's depthwise convs (ops/dwconv.py): launched by that net alone
-# (phase 26; the benchmark's infer-mednext-stack600)
-MEDNEXT_KERNELS = ("dwconv",)
+# MedNeXt's depthwise convs (ops/dwconv.py) and block MLP (ops/mlp.py):
+# launched by that net alone (phase 26; the benchmark's
+# infer-mednext-stack600)
+MEDNEXT_KERNELS = ("dwconv", "fused_mlp")
 # the histogram kernels (ops/hist.py), launched by every one-volume call:
 # H1 and H2 normalize, H3 counts the labels for the size filter
 HIST_KERNELS = ("bin_counts", "percentiles", "label_counts")
@@ -3163,7 +3183,7 @@ def phase_multiprocess(sv, ckpt_dir: str, vol_path: str, ann_path: str,
     # for the one-volume filter only (the sharded paths compact packed ids);
     # M1/M2 run with the saddle merge, which these legs leave off (phase 19
     # holds them on the merge-on calls); W1, N1 and R1 with SwinUNETR
-    # alone, D1 with MedNeXt alone
+    # alone, D1 and E1 with MedNeXt alone
     missing = [k for k in KERNELS if k not in ("label_counts",) + PAIR_KERNELS
                + SWIN_KERNELS + MEDNEXT_KERNELS and not acc.get(k)]
     if missing:
@@ -4301,8 +4321,36 @@ DWCONV_EDGES = (("ragged", (2, 3, 13, 21, 37), 1, False),
                 ("width 8, unaligned", (1, 4, 9, 17, 8), 1, False))
 #: the hand-written kernels a MedNeXt-L net call launches: D1 once a
 #: depthwise conv (54 blocks, 4 down, 4 up), N1 twice a GroupNorm (one
-#: after each)
-MEDNEXT_LAUNCHES_PER_NET_CALL = {"dwconv": 62, "instance_norm_lrelu": 124}
+#: after each), E1 once a block's MLP
+MEDNEXT_LAUNCHES_PER_NET_CALL = {"dwconv": 62, "instance_norm_lrelu": 124,
+                                 "fused_mlp": 62}
+#: MedNeXt-L's block MLPs of a net call (a tile batch of two 128^3 blocks),
+#: by distinct shape: (name, ci, e, co, side of the voxels they run on,
+#: calls a net call); the down blocks' on the halved sides, the up blocks'
+#: on (2S - 1)^3
+MLP_CALLS = (("level 0", 32, 96, 32, 128, 6),
+             ("level 1", 64, 256, 64, 64, 8),
+             ("level 2", 128, 1024, 128, 32, 16),
+             ("level 3", 256, 2048, 256, 16, 16),
+             ("level 4", 512, 4096, 512, 8, 8),
+             ("down 0", 32, 128, 64, 64, 1),
+             ("down 1", 64, 512, 128, 32, 1),
+             ("down 2", 128, 1024, 256, 16, 1),
+             ("down 3", 256, 2048, 512, 8, 1),
+             ("up 3", 512, 4096, 256, 15, 1),
+             ("up 2", 256, 2048, 128, 31, 1),
+             ("up 1", 128, 512, 64, 63, 1),
+             ("up 0", 64, 192, 32, 127, 1))
+#: E1's edges: (name, shape of a, e, co, residual): ragged tiles in rows
+#: not 16-byte aligned, whole rows with a ragged last tile, no residual, two
+#: output slices at a ragged tile, batch 3, a tensor one element past
+#: 16-byte alignment (staged and stored by 2-byte accesses)
+MLP_EDGES = (("ragged", (2, 32, 5, 7, 9), 96, 32, True),
+             ("aligned rows, ragged tile", (1, 64, 4, 4, 6), 192, 32, True),
+             ("no residual", (1, 64, 16, 16, 16), 256, 64, False),
+             ("two slices, ragged", (1, 512, 3, 5, 7), 4096, 512, True),
+             ("batch 3", (3, 128, 8, 8, 8), 1024, 256, True),
+             ("unaligned", (1, 32, 8, 8, 8), 128, 64, True))
 
 
 def _dwconv_library(x, w, b, stride, transposed):
@@ -4479,6 +4527,156 @@ def phase_dwconv():
     return {**records["level 0"], "net_call": total}
 
 
+def _mlp_inputs(shape, e, co, residual, g, offset=0):
+    """bf16 a (one element past 16-byte alignment when ``offset``), the
+    module's float32 weights at std 1 / sqrt(fan in), small biases, a
+    residual of the output's shape."""
+    n, ci = shape[:2]
+    a = torch.randn(math.prod(shape) + offset, device="cuda", generator=g)
+    a = a.to(torch.bfloat16)[offset:].view(shape)
+    w2 = torch.randn((e, ci, 1, 1, 1), device="cuda", generator=g) / ci ** 0.5
+    w3 = torch.randn((co, e, 1, 1, 1), device="cuda", generator=g) / e ** 0.5
+    b2 = 0.1 * torch.randn((e,), device="cuda", generator=g)
+    b3 = 0.1 * torch.randn((co,), device="cuda", generator=g)
+    r = (torch.randn((n, co, *shape[2:]), device="cuda", generator=g)
+         .to(torch.bfloat16) if residual else None)
+    return a, w2, b2, w3, b3, r
+
+
+def _mlp_check(tag, a, w2, b2, w3, b3, r) -> dict:
+    """One E1 call against its twin (phase 26's holds): one launch a call,
+    two calls bitwise equal; each value within one bf16 ulp of the twin's
+    plus 2^-7 of the sum of |W3| |g| (every expanded value it sums one
+    rounding apart: the products' float32 sums differ, so the expanded
+    rounding may fall either way) plus float32's slack; the mean error
+    against the float64 composition with the same two roundings no larger
+    than the twin's (by 1% of it)."""
+    from tpuseg_torch.ops.mlp import fused_mlp, fused_mlp_plain
+
+    before = fused_mlp.launches
+    got = fused_mlp(a, w2, b2, w3, b3, r)
+    again = fused_mlp(a, w2, b2, w3, b3, r)
+    torch.cuda.synchronize()
+    if fused_mlp.launches - before != 2:
+        raise AssertionError(f"[26] fused_mlp {tag}: not one launch a call")
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"[26] fused_mlp {tag}: two calls differ")
+    del again
+    twin = fused_mlp_plain(a, w2, b2, w3, b3, r).float()
+    n, ci = a.shape[:2]
+    e, co = w2.shape[0], w3.shape[0]
+    w2d = w2.to(torch.bfloat16).double().reshape(e, ci)
+    w3d = w3.to(torch.bfloat16).double().reshape(co, e)
+    h = torch.matmul(w2d, a.double().reshape(n, ci, -1)) + b2.double().view(
+        1, -1, 1)
+    gb = torch.nn.functional.gelu(h).to(torch.bfloat16).double()
+    del h
+    mag = torch.matmul(w3d.abs(), gb.abs())
+    exact = torch.matmul(w3d, gb) + b3.double().view(1, -1, 1)
+    del gb
+    if r is not None:
+        exact = exact + r.double().reshape(n, co, -1)
+    exact = exact.view(got.shape)
+    mag = mag.view(got.shape)
+    err = (got.float() - twin).abs()
+    e2 = torch.floor(torch.log2(twin.abs().clamp(min=2.0 ** -126)))
+    over = err - (torch.exp2(e2 - 7) + 2.0 ** -7 * mag + 2.0 ** -16 * (
+        mag + b3.abs().view(1, -1, 1, 1, 1)))
+    err64 = (got.double() - exact).abs().mean()
+    twin64 = (twin.double() - exact).abs().mean()
+    rec = {"max_abs_err": float(err.max()),
+           "differ_share": float((err > 0).float().mean()),
+           "mean_err_f64": float(err64), "twin_mean_err_f64": float(twin64)}
+    ok = float(over.max()) <= 0 and rec["mean_err_f64"] <= 1.01 * rec[
+        "twin_mean_err_f64"] + 1e-7
+    del twin, mag, exact, err, e2, over, got
+    if not ok:
+        raise AssertionError(f"[26] fused_mlp {tag}: past its bound against "
+                             f"the twin or less exact: {rec}")
+    print(f"[26] fused_mlp {tag}: within the bound of the twin (max "
+          f"{rec['max_abs_err']:.3g}, {100 * rec['differ_share']:.3f}% of "
+          f"values differ; mean error against float64 "
+          f"{rec['mean_err_f64']:.3g}, twin {rec['twin_mean_err_f64']:.3g}),"
+          f" two calls equal bitwise", flush=True)
+    return rec
+
+
+def _mlp_library(a, w2, b2, w3, b3, r):
+    """The torch composition E1 replaced: the two channel products (a
+    ``torch.matmul`` and a broadcast bias add each), ``F.gelu`` and the
+    residual add, in bf16."""
+    from tpuseg_torch.ops.rconv import channel_product
+
+    y = channel_product(torch.nn.functional.gelu(channel_product(a, w2, b2)),
+                        w3, b3)
+    return y if r is None else r + y
+
+
+def phase_mlp():
+    """E1 against its twin at each distinct shape of a MedNeXt-L net call
+    (``MLP_CALLS``, each with its residual) and at ``MLP_EDGES``; at the net
+    call's shapes the kernel's ms (CUDA graph replays, the packing launch
+    included) beside its bound (the larger of its FLOPs at the bf16 peak
+    and its bytes: a and R read, y written, the float32 weights read
+    once), the twin's and the torch composition's, and their sums over a
+    net call by each shape's calls. Returns the record (level 0's)."""
+    from tpuseg_torch.ops.mlp import fused_mlp, fused_mlp_plain, mlp_plan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    records = {}
+    total = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bytes_ms": 0.0, "flops_ms": 0.0}
+    for name, ci, e, co, side, calls in MLP_CALLS:
+        args = _mlp_inputs((2, ci, side, side, side), e, co, True, g)
+        a, w2, b2, w3, b3, r = args
+        plan = mlp_plan(ci, e, co)
+        tag = (f"{name}: (2, {ci}, {side}^3) -> {e} -> {co} (ec {plan.ec}, "
+               f"nco {plan.nco}, {'resident' if plan.resident else 'streamed'}"
+               f")")
+        rec = _mlp_check(tag, *args)
+        vox = 2 * side ** 3
+        flops = 2 * vox * (ci * e + e * co)
+        n_bytes = 2 * (a.numel() + 2 * vox * co) + 4 * (e * ci + co * e + e
+                                                         + co)
+        rec.update({
+            "ms": graph_ms(lambda: fused_mlp(*args), 10),
+            "plain_ms": cuda_ms(lambda: fused_mlp_plain(*args), 2),
+            "library_ms": graph_ms(lambda: _mlp_library(*args), 5),
+            "bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            "flops_ms": 1e3 * flops / BF16_FLOPS,
+            "gelu_values": vox * e,
+            **bound(n_bytes, flops, BF16_FLOPS)})
+        records[name] = {"shape": list(a.shape), "e": e, "co": co,
+                         "calls": calls, **rec}
+        for k in total:
+            total[k] += calls * rec[k]
+        print(f"[26] fused_mlp {tag} (x{calls} a net call): kernel "
+              f"{rec['ms']:.3f} ms ({flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{n_bytes / rec['ms'] / 1e6:.0f} GB/s, "
+              f"{vox * e / rec['ms'] / 1e6:.1f} G GELU/s), bound "
+              f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} (FLOPs "
+              f"{rec['flops_ms']:.3f}, bytes {rec['bytes_ms']:.3f}), twin "
+              f"{rec['plain_ms']:.3f} ms, torch composition "
+              f"{rec['library_ms']:.3f} ms (ratio "
+              f"{rec['ms'] / rec['library_ms']:.3f})", flush=True)
+        del args, a, w2, b2, w3, b3, r
+        torch.cuda.empty_cache()
+    for name, shape, e, co, residual in MLP_EDGES:
+        args = _mlp_inputs(shape, e, co, residual, g,
+                           offset=1 if name == "unaligned" else 0)
+        _mlp_check(f"{name}: {tuple(shape)} -> {e} -> {co}", *args)
+        del args
+    print(f"[26] a net call's 62 block MLPs (tile batch of two 128^3 "
+          f"blocks): kernel {total['ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.3f} (FLOPs {total['flops_ms']:.3f}, bytes "
+          f"{total['bytes_ms']:.3f}), twin {total['plain_ms']:.3f}, torch "
+          f"composition {total['library_ms']:.3f}; a 96x512x512 stack's 18 "
+          f"net calls: kernel {18 * total['ms']:.2f} ms, bound "
+          f"{18 * total['bound_ms']:.2f}, torch composition "
+          f"{18 * total['library_ms']:.2f}", flush=True)
+    return {**records["level 0"], "net_call": total}
+
+
 def mednext_main_path(image: np.ndarray) -> dict:
     """D1's and N1's launches in one replayed call of MedNeXt-L (seeded
     weights, bf16) through ``make_infer_fn`` on ``image`` at the benchmark
@@ -4491,6 +4689,7 @@ def mednext_main_path(image: np.ndarray) -> dict:
     from tpuseg_torch.models import build_mednext
     from tpuseg_torch.ops.dwconv import dwconv
     from tpuseg_torch.ops.instnorm import instance_norm_lrelu
+    from tpuseg_torch.ops.mlp import fused_mlp
 
     model = build_mednext(seed=SEED).cuda()
     cfg = Config(infer=InferConfig(tile=(96, 96, 96), halo=(16, 16, 16),
@@ -4501,7 +4700,8 @@ def mednext_main_path(image: np.ndarray) -> dict:
     for _ in range(2):                  # eager, then the capture
         infer(vol)
     torch.cuda.synchronize()
-    wrappers = {"dwconv": dwconv, "instance_norm_lrelu": instance_norm_lrelu}
+    wrappers = {"dwconv": dwconv, "instance_norm_lrelu": instance_norm_lrelu,
+                "fused_mlp": fused_mlp}
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -4518,8 +4718,9 @@ def mednext_main_path(image: np.ndarray) -> dict:
     print(f"[26] main path: MedNeXt-L (kernel 5, bf16) through make_infer_fn "
           f"on {tuple(vol.shape)}, {blocks} blocks of 128^3 in {calls} net "
           f"calls, captured: a replayed call launched dwconv "
-          f"{n['dwconv']} times and instance_norm_lrelu "
-          f"{n['instance_norm_lrelu']} times ({wall_ms:.1f} ms wall)",
+          f"{n['dwconv']} times, instance_norm_lrelu "
+          f"{n['instance_norm_lrelu']} times and fused_mlp "
+          f"{n['fused_mlp']} times ({wall_ms:.1f} ms wall)",
           flush=True)
     infer.release()
     del infer, model, vol
@@ -6404,8 +6605,10 @@ def main(argv=None):
     mednext = {}
     if want(26):
         kernels["dwconv"] = _timed("phase 26", phase_dwconv)
+        kernels["fused_mlp"] = _timed("phase 26 E1", phase_mlp)
         mednext = _timed("phase 26 main path", mednext_main_path, sv.image)
         launches["dwconv"] = mednext["dwconv"]
+        launches["fused_mlp"] = mednext["fused_mlp"]
     if want(11):
         kernels["fused_peak_nms"] = _timed("phase 11", phase_nms, sv.image)
     if want(12):

@@ -41,6 +41,7 @@ from tpuseg_torch.models.mednext import Block
 from tpuseg_torch.ops.dwconv import dwconv, dwconv_plain, out_side
 from tpuseg_torch.ops.instnorm import (instance_norm_lrelu,
                                        instance_norm_lrelu_plain)
+from tpuseg_torch.ops.mlp import fused_mlp
 from tpuseg_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -160,6 +161,46 @@ def test_every_depthwise_conv_and_norm_takes_the_wrappers(dtype,
     assert forms == ([(1, False, dt)] + [(2, False, dt), (1, False, dt)] * 4
                      + [(2, True, dt), (1, False, dt)] * 4)
     assert norms == [(None, True, True, 1.0)] * 17
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_block_mlp_takes_the_wrapper(dtype, monkeypatch):
+    """Each of the small net's 17 blocks (a block a stage, four down, four
+    up) calls ``fused_mlp`` once, with conv2's and conv3's weights and its
+    residual: the block's input itself in a plain block, ``res(x)`` of the
+    output's shape in a down or up block, whatever the dtype (on the CPU
+    the twin, on the card the kernel)."""
+    calls, entered = [], []
+
+    def counted(a, w2, b2, w3, b3, r=None):
+        calls.append((a.shape[1], w2.shape[0], w3.shape[0], a.dtype, r))
+        return fused_mlp(a, w2, b2, w3, b3, r)
+
+    monkeypatch.setattr(mednext_module, "fused_mlp", counted)
+    model = _model(dtype)
+    for blk in model.modules():
+        if isinstance(blk, Block):
+            blk.register_forward_pre_hook(
+                lambda mod, args: entered.append((mod.kind, args[0])))
+    with torch.no_grad():
+        model(torch.zeros(1, 32, 32, 32))
+    assert len(calls) == len(entered) == 17
+    w = [4 * 2 ** i for i in range(5)]
+    r = SMALL["exp_r"]
+    want = ([(4, 4 * r[0], 4)]
+            + [x for i in range(4) for x in (
+                (w[i], w[i] * r[i + 1], w[i + 1]),
+                (w[i + 1], w[i + 1] * r[i + 1], w[i + 1]))]
+            + [x for i in reversed(range(4)) for x in (
+                (w[i + 1], w[i + 1] * r[8 - i], w[i]),
+                (w[i], w[i] * r[8 - i], w[i]))])
+    assert [c[:3] for c in calls] == want
+    for (ci, e, co, dt, res), (kind, x) in zip(calls, entered):
+        assert dt == getattr(torch, dtype)
+        if kind == "block":
+            assert res is x
+        else:
+            assert res is not None and res.shape[1] == co and res is not x
 
 
 # ------------------------------------------------------------------- D1
@@ -646,7 +687,7 @@ def test_reference_imports_only_torch():
 
 @pytest.mark.parametrize("path", [
     "tpuseg_torch/models/mednext.py", "tpuseg_torch/ops/dwconv.py",
-    "perfbench/arch/mednext.py"])
+    "tpuseg_torch/ops/mlp.py", "perfbench/arch/mednext.py"])
 def test_port_and_seam_import_no_jax(path):
     names = _imports(ROOT / path)
     assert not names & {"jax", "jaxlib", "flax", "tpuseg"}

@@ -28,11 +28,15 @@ with float32 parameters, as ``UNet3D`` and ``SwinUNETR`` are.
 Routes: every depthwise conv is :func:`tpuseg_torch.ops.dwconv.dwconv`
 (D1 on the card, bf16; its twin on the CPU), every GroupNorm is N1's
 affine mode (:func:`tpuseg_torch.ops.instnorm.instance_norm_lrelu` with
-the GroupNorm's weight and bias, no residual and slope 1), every 1x1x1
-conv, strided or transposed, and the head a channel product on the NCDHW
-view (``ops.rconv.channel_product``); GELU and the adds are torch ops. The
-``nn.Conv3d`` / ``nn.ConvTranspose3d`` / ``nn.GroupNorm`` modules hold the
-parameters in MIC-DKFZ's layout.
+the GroupNorm's weight and bias, no residual and slope 1), every block's
+``conv3(GELU(conv2(.)))`` with its residual is
+:func:`tpuseg_torch.ops.mlp.fused_mlp` (E1 on the card: the expanded
+tensor stays on chip; the block's ``x``, or Down's and Up's ``res(x)``,
+is its residual, added to the float32 sum), and the stem, the strided and
+transposed 1x1x1 residual convs and the head are channel products on the
+NCDHW view (``ops.rconv.channel_product``); the skip adds are torch ops.
+The ``nn.Conv3d`` / ``nn.ConvTranspose3d`` / ``nn.GroupNorm`` modules hold
+the parameters in MIC-DKFZ's layout.
 
 The module reads the host for nothing, so an inference call captures
 whole (``infer/graph.py``). Its forward marks the device stages
@@ -54,6 +58,7 @@ from torch import nn
 from tpuseg_torch.core.dtypes import resolve
 from tpuseg_torch.ops.dwconv import dwconv
 from tpuseg_torch.ops.instnorm import instance_norm_lrelu
+from tpuseg_torch.ops.mlp import fused_mlp
 from tpuseg_torch.ops.rconv import channel_product
 from tpuseg_torch.utils.profiling import mark
 
@@ -108,25 +113,29 @@ class Block(nn.Module):
         elif kind == "up":
             self.res_conv = nn.ConvTranspose3d(ci, co, 1, stride=2)
 
-    def body(self, x):
+    def body(self, x, res):
+        """``res + conv3(GELU(conv2(GN(dw(x)))))``, the MLP and the
+        residual in one ``fused_mlp``."""
         y = dwconv(x, self.conv1.weight, self.conv1.bias, stride=1
                    if self.kind == "block" else 2,
                    transposed=self.kind == "up")
         y = instance_norm_lrelu(y, weight=self.norm.weight,
                                 bias=self.norm.bias, slope=1.0)
-        y = F.gelu(channel_product(y, self.conv2.weight, self.conv2.bias))
-        return channel_product(y, self.conv3.weight, self.conv3.bias)
+        return fused_mlp(y, self.conv2.weight, self.conv2.bias,
+                         self.conv3.weight, self.conv3.bias, res)
 
     def forward(self, x):
-        y = self.body(x)
         if self.kind == "block":
-            return x + y
+            return self.body(x, x)
         w, b = self.res_conv.weight, self.res_conv.bias
         if self.kind == "down":
-            return y + channel_product(x[:, :, ::2, ::2, ::2], w, b)
-        res = b.to(y.dtype).view(1, -1, 1, 1, 1).expand(y.shape).clone()
+            return self.body(x, channel_product(x[:, :, ::2, ::2, ::2], w,
+                                                b))
+        side = [2 * s - 1 for s in x.shape[2:]]
+        res = b.to(x.dtype).view(1, -1, 1, 1, 1).expand(
+            x.shape[0], -1, *side).clone()
         res[:, :, ::2, ::2, ::2] = channel_product(x, w.transpose(0, 1), b)
-        return F.pad(y + res, _LOW_PAD)
+        return F.pad(self.body(x, res), _LOW_PAD)
 
 
 class MedNeXt(nn.Module):

@@ -11,7 +11,8 @@ share the weight layout of ``ops/conv_mma.py``, and SwinUNETR's
 shifted-window attention (W1, ``ops/window_attn.py``), its ResBlocks'
 InstanceNorm, add and LeakyReLU (N1, ``ops/instnorm.py``; MedNeXt's
 GroupNorm too) and their 3x3x3 convs (R1, ``ops/rconv.py``), and MedNeXt's
-depthwise convs (D1, ``ops/dwconv.py``)."""
+depthwise convs (D1, ``ops/dwconv.py``) and block MLP (E1,
+``ops/mlp.py``)."""
 
 from tpuseg_torch.ops.closure import union_closure, union_closure_plain
 from tpuseg_torch.ops.convblock import (fold_bn_affine, fused_convblock,
@@ -33,6 +34,7 @@ from tpuseg_torch.ops.merge import LAST_CALL_STATE as _MERGE_STATE
 from tpuseg_torch.ops.merge import (apply_merge_table, pair_aggregate,
                                     pair_slots, saddle_merge,
                                     saddle_merge_edges, saddle_merge_table)
+from tpuseg_torch.ops.mlp import fused_mlp, fused_mlp_plain
 from tpuseg_torch.ops.nms import fused_peak_nms
 from tpuseg_torch.ops.peaks import peak_nms, radius3, seed_labels_from_peaks
 from tpuseg_torch.ops.rconv import channel_product, rconv_plain
@@ -56,7 +58,7 @@ KERNEL_WRAPPERS = (seed_chase_pass, chase_pass, flood_pass, conv3x3_raw,
                    fused_convblock, fused_peak_nms, bin_counts, percentiles,
                    label_counts, union_closure, pair_aggregate, pair_slots,
                    upsample_conv_cat, window_attention, instance_norm_lrelu,
-                   _rconv, _dwconv)
+                   _rconv, _dwconv, fused_mlp)
 
 #: the state the wrappers keep about their last call, ``(holder,
 #: attribute)``, declared by each wrapper's module
@@ -70,7 +72,8 @@ __all__ = [
     "conv3x3_plain", "conv3x3_raw", "dwconv_plain", "flood_pass",
     "flood_resolve",
     "flood_truncation_count", "fold_bn_affine", "fused_convblock",
-    "fused_convblock_plain", "fused_peak_nms", "instance_norm_lrelu",
+    "fused_convblock_plain", "fused_mlp", "fused_mlp_plain", "fused_peak_nms",
+    "instance_norm_lrelu",
     "instance_norm_lrelu_plain", "label_components",
     "label_counts", "label_sizes", "labels_are_connected", "max_seed_count",
     "pair_aggregate", "pair_slots", "peak_nms", "percentiles",

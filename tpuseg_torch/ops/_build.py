@@ -74,6 +74,8 @@ SIGNATURES = {
                      _P],
     "tpuseg_rconv_ci1": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tpuseg_dwconv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tpuseg_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
 }
 
 
